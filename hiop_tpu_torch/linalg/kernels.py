@@ -1,0 +1,200 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The sources live in ``hiop_tpu_torch/csrc/``. At first use each ``.cu`` file
+is compiled by its own ``nvcc`` process (all started together) for
+``sm_90a`` into ``build/kernels/`` beside the package, and the objects are
+linked into one shared library with a plain C interface, loaded with
+``ctypes``. The library's name carries a hash of the sources and flags, so
+an edited source is rebuilt and an unchanged one is loaded as it is.
+
+Every C entry point launches on the stream it is given, allocates nothing,
+and returns ``cudaGetLastError()``; the Python wrappers in
+:mod:`hiop_tpu_torch.linalg.cholesky` and
+:mod:`hiop_tpu_torch.linalg.ldl_blocked` allocate outputs and scratch and
+raise on a nonzero return.
+
+:data:`stats` counts the launches of each wrapper. A run sets the counts to
+zero, drives the solver, and reads them to show which kernels its main path
+went through. With ``stats.timing`` set, each launch is also bracketed by
+CUDA events so that the kernels' device time over a run can be summed.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from collections import Counter
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = ("cholesky.cu", "ldl_nopiv.cu")
+HEADERS = ("dense_blocked.cuh",)
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+#: block-column width of the kernels (``NB`` in csrc/dense_blocked.cuh); the
+#: wrappers size the diagonal-block scratch with it
+NB = 64
+
+
+class KernelStats:
+    """Launch counts per wrapper, and optional per-launch CUDA events."""
+
+    def __init__(self) -> None:
+        self.launches: Counter = Counter()   # name -> launches
+        self.sizes: Counter = Counter()      # (name, n, dtype) -> launches
+        self.timing = False
+        self.events: list = []               # (name, n, start, end) when timing
+
+    def reset(self) -> None:
+        self.launches.clear()
+        self.sizes.clear()
+        self.events.clear()
+
+    def begin(self):
+        if not self.timing:
+            return None
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def count(self, name: str, n: int, dtype, start) -> None:
+        self.launches[name] += 1
+        self.sizes[(name, n, str(dtype).replace("torch.", ""))] += 1
+        if start is not None:
+            import torch
+
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.events.append((name, n, start, end))
+
+    def device_ms(self) -> dict:
+        """Summed kernel milliseconds by name over the recorded launches
+        (synchronizes)."""
+        import torch
+
+        torch.cuda.synchronize()
+        out: dict = {}
+        for name, _, s, e in self.events:
+            out[name] = out.get(name, 0.0) + s.elapsed_time(e)
+        return out
+
+
+stats = KernelStats()
+
+_lock = threading.Lock()
+_lib = None
+#: (seconds, compiler log) of the build this process did, None if it loaded
+#: a library that was already built
+last_build = None
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and Path("/usr/local/cuda/bin/nvcc").exists():
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels can only be built "
+                           "where the CUDA toolkit is installed")
+    return path
+
+
+def _library_path() -> Path:
+    h = hashlib.sha256()
+    for name in SOURCES + HEADERS:
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"libhiop_torch_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> Path:
+    """Compile and link the kernel library if it is not built yet; returns
+    its path. One ``nvcc`` per source, all running at once."""
+    global last_build
+    lib = _library_path()
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for src in SOURCES:
+            obj = Path(tmp) / (src + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(CSRC / src), "-o", str(obj)]
+            procs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        log, objs, failed = [], [], []
+        for obj, p in procs:
+            out, _ = p.communicate()
+            log.append(out)
+            objs.append(str(obj))
+            if p.returncode != 0:
+                failed.append(obj.name)
+        if failed:
+            raise RuntimeError("nvcc failed for %s:\n%s" % (failed, "\n".join(log)))
+        tmp_lib = Path(tmp) / lib.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+             "-o", str(tmp_lib), *objs],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode != 0:
+            raise RuntimeError("linking the kernel library failed:\n" + link.stdout)
+        tmp_lib.replace(lib)  # atomic: a concurrent build never sees half a file
+    last_build = (time.perf_counter() - t0, "\n".join(log))
+    return lib
+
+
+def load() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            p, i = ctypes.c_void_p, ctypes.c_int
+            for dt in ("f64", "f32"):
+                fn = getattr(lib, f"hiop_cholesky_{dt}")
+                fn.argtypes = [p, p, i, p, p, p]
+                fn.restype = i
+                fn = getattr(lib, f"hiop_ldl_nopiv_{dt}")
+                fn.argtypes = [p, p, p, i, p, p, p]
+                fn.restype = i
+            _lib = lib
+        return _lib
+
+
+def check_input(A, name: str) -> None:
+    """What both kernels take: a square, contiguous f32/f64 CUDA matrix."""
+    import torch
+
+    if not A.is_cuda:
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"{name}: dtype {A.dtype} is not float32/float64")
+    if A.dim() != 2 or A.shape[0] != A.shape[1]:
+        raise ValueError(f"{name}: expected a square matrix, got {tuple(A.shape)}")
+    if not A.is_contiguous():
+        raise ValueError(f"{name}: the input must be contiguous (row-major)")
+
+
+def dtype_suffix(dtype) -> str:
+    import torch
+
+    return "f64" if dtype == torch.float64 else "f32"
+
+
+def raise_on_error(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA kernel launch failed (cudaError {rc})")

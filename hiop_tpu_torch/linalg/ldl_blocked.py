@@ -1,0 +1,174 @@
+"""Blocked no-pivot LDL^T (the inertia-revealing MDS safe tier).
+
+Counterpart of ``hiop_tpu/linalg/ldl_blocked.py`` (reference
+hiopLinSolverSymDenseMagmaNopiv, hiopLinSolverSymDenseMagma.hpp:145): about
+twice as fast as pivoted LDL^T but less stable, used inside the IPM's
+regularization ladder where a breakdown triggers a retry with larger
+perturbations. The inertia comes from the signs of the pivots, valid by
+Sylvester's law whenever the factorization completes without breakdown.
+
+The matrix is padded with an identity block to a multiple of 128, as in
+``_ldl_factor_impl``; the padding pivots are +1 and are left out of the
+inertia count. The factorization itself:
+
+- a CUDA tensor goes to the hand-written kernel (``csrc/ldl_nopiv.cu``,
+  f32/f64, any size): per 64-wide block column, one CTA factors the
+  diagonal block in registers (Crout with the unit-lower inverse built
+  in the same loop), a panel kernel forms P = W L_kk^{-T} D_kk^{-1}, and a
+  tiled kernel applies A22 -= P D_kk P^T to the lower triangle;
+- a CPU tensor goes to :func:`ldl_nopiv_plain`, which repeats that blocked
+  arithmetic with torch operations.
+
+The no-pivot factor is unique, so the block width (64 here, 128 in the
+JAX lanes) changes the result by rounding only. A zero pivot gives d = 0
+and a zeroed column, not NaN; ``ok`` then reports the breakdown.
+
+Solve = unit-lower triangular solve, diagonal scale, unit-upper solve
+(``torch.linalg.solve_triangular``; in JAX these are XLA calls outside the
+Pallas kernel too).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from hiop_tpu_torch.linalg import kernels as _k
+
+_BLOCK = 128  # padding granularity of hiop_tpu's _ldl_factor_impl
+NB = _k.NB
+
+
+class LdlFactors(NamedTuple):
+    L: torch.Tensor       # (n_p, n_p) unit-lower factor (padded)
+    d: torch.Tensor       # (n_p,) pivots (padding pivots are +1)
+    n: int                # true (unpadded) dimension
+    n_neg: torch.Tensor   # count of negative pivots among the first n
+    ok: torch.Tensor      # bool: finite factor, no pivot breakdown
+
+
+def _inv_or_zero(d):
+    return torch.where(d.abs() > 0, 1.0 / torch.where(d == 0, 1.0, d), 0.0)
+
+
+def _pad_sym(M, n_p):
+    """Embed M into blkdiag(M, I_{n_p-n}) — extra pivots come out as +1."""
+    n = M.shape[0]
+    if n_p == n:
+        return M.contiguous()
+    P = torch.zeros((n_p, n_p), dtype=M.dtype, device=M.device)
+    P[:n, :n] = M
+    idx = torch.arange(n, n_p, device=M.device)
+    P[idx, idx] = 1.0
+    return P
+
+
+def ldl_nopiv(A: torch.Tensor):
+    """(L, d) of the symmetric matrix A (lower triangle read), any size."""
+    if A.is_cuda:
+        return ldl_nopiv_cuda(A)
+    if A.device.type != "cpu":
+        raise ValueError(f"ldl_nopiv: unsupported device {A.device}")
+    return ldl_nopiv_plain(A)
+
+
+def ldl_nopiv_cuda(A: torch.Tensor):
+    """Launch the CUDA kernel on the current stream (counted in
+    ``kernels.stats`` as ``ldl_nopiv``)."""
+    _k.check_input(A, "ldl_nopiv")
+    n = A.shape[0]
+    L = torch.empty_like(A)
+    d = torch.empty((n,), dtype=A.dtype, device=A.device)
+    if n == 0:
+        return L, d
+    X = torch.empty((NB, NB), dtype=A.dtype, device=A.device)
+    invd = torch.empty((NB,), dtype=A.dtype, device=A.device)
+    fn = getattr(_k.load(), "hiop_ldl_nopiv_" + _k.dtype_suffix(A.dtype))
+    start = _k.stats.begin()
+    rc = fn(A.data_ptr(), L.data_ptr(), d.data_ptr(), n, X.data_ptr(), invd.data_ptr(),
+            torch.cuda.current_stream(A.device).cuda_stream)
+    _k.raise_on_error(rc, "ldl_nopiv")
+    _k.stats.count("ldl_nopiv", n, A.dtype, start)
+    return L, d
+
+
+def _diag_factor(S: torch.Tensor):
+    """Unblocked no-pivot LDL^T of one diagonal block with the unit-lower
+    inverse built in the same loop (the kernel's ``diag_factor``; the fused
+    form of hiop_tpu's ``_ldl_diag_block_inv``). Returns (L_kk, d_kk, X)."""
+    kb = S.shape[0]
+    S = torch.tril(S).clone()
+    L = torch.eye(kb, dtype=S.dtype, device=S.device)
+    d = torch.zeros((kb,), dtype=S.dtype, device=S.device)
+    X = torch.eye(kb, dtype=S.dtype, device=S.device)
+    for j in range(kb):
+        dj = S[j, j]
+        lcol = S[j + 1:, j] * _inv_or_zero(dj)
+        L[j + 1:, j] = lcol
+        d[j] = dj
+        S[j + 1:, j + 1:] -= dj * torch.outer(lcol, lcol)
+        X[j + 1:, : j + 1] -= torch.outer(lcol, X[j, : j + 1])
+    return L, d, X
+
+
+def ldl_nopiv_plain(A: torch.Tensor):
+    """The kernel's blocked right-looking arithmetic in torch operations
+    (the CPU lane, and the yardstick the kernel is held against)."""
+    n = A.shape[0]
+    W = torch.tril(A).clone()
+    d = torch.zeros((n,), dtype=A.dtype, device=A.device)
+    for k0 in range(0, n, NB):
+        k1 = min(k0 + NB, n)
+        Lkk, dk, X = _diag_factor(W[k0:k1, k0:k1])
+        W[k0:k1, k0:k1] = Lkk
+        d[k0:k1] = dk
+        if k1 == n:
+            break
+        P = (W[k1:, k0:k1] @ X.T) * _inv_or_zero(dk)[None, :]
+        W[k1:, k0:k1] = P
+        W[k1:, k1:] -= torch.tril((P * dk[None, :]) @ P.T)
+    return W, d
+
+
+def ldl_factor(M: torch.Tensor) -> LdlFactors:
+    """Blocked no-pivot LDL^T of symmetric M with ``_ldl_factor_impl``'s
+    padding, breakdown test and inertia count. Any square f32/f64 matrix."""
+    n = M.shape[0]
+    n_p = max(((n + _BLOCK - 1) // _BLOCK) * _BLOCK, _BLOCK)
+    L, d = ldl_nopiv(_pad_sym(M, n_p))
+    return ldl_factors(M, L, d)
+
+
+def ldl_factors(M: torch.Tensor, L: torch.Tensor, d: torch.Tensor) -> LdlFactors:
+    """The factors of M from (L, d) of its padded form: the breakdown test
+    and the inertia count of ``_ldl_factor_impl``."""
+    n, n_p = M.shape[0], L.shape[0]
+    true_mask = torch.arange(n_p, device=M.device) < n
+    d_true = torch.where(true_mask, d, 1.0)
+    # breakdown: pivots tiny relative to the matrix scale, or non-finite
+    # factor — either way the factorization carries no usable information
+    scale = M.abs().max().clamp(min=1.0) if n else 1.0
+    tiny = torch.finfo(M.dtype).eps * scale * 1e-2
+    ok = (
+        torch.isfinite(L).all()
+        & torch.isfinite(d).all()
+        & (d_true.abs() > tiny).all()
+    )
+    n_neg = ((d < 0) & true_mask).sum()
+    return LdlFactors(L, d, n, n_neg, ok)
+
+
+def ldl_solve(f: LdlFactors, rhs: torch.Tensor) -> torch.Tensor:
+    """Solve M x = rhs with the factors. rhs is (n,) or (n, k)."""
+    n_p = f.L.shape[0]
+    squeeze = rhs.dim() == 1
+    r = rhs[:, None] if squeeze else rhs
+    pad = n_p - r.shape[0]
+    if pad:
+        r = torch.cat([r, r.new_zeros((pad, r.shape[1]))], dim=0)
+    y = torch.linalg.solve_triangular(f.L, r, upper=False, unitriangular=True)
+    z = y * _inv_or_zero(f.d)[:, None]
+    x = torch.linalg.solve_triangular(f.L.T, z, upper=True, unitriangular=True)
+    x = x[: rhs.shape[0]]
+    return x[:, 0] if squeeze else x

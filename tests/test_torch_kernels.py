@@ -1,0 +1,195 @@
+"""The port's dense factorization kernels against the JAX package.
+
+On the CPU the port's wrappers take their plain PyTorch versions, which
+repeat the CUDA kernels' blocked arithmetic; these are held against the
+JAX lanes (XLA, and the Pallas kernels in interpret mode). The tests
+marked ``gpu`` hold the CUDA kernels against the plain versions on a card
+and skip where there is none. They need no JAX, so on a machine with a
+card and without JAX they run alone:
+``python -m pytest --noconftest -m gpu tests/test_torch_kernels.py``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from hiop_tpu_torch.linalg import cholesky as tchol
+from hiop_tpu_torch.linalg import kernels
+from hiop_tpu_torch.linalg import ldl_blocked as tldl
+
+TOL_CHOL = {np.float64: 1e-10, np.float32: 1e-3}
+
+
+def _spd(n, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((n, n))
+    return A @ A.T + n * np.eye(n)
+
+
+def _saddle(n, seed):
+    """A quasi-definite saddle [[K, J^T], [J, -C]] (K, C SPD), symmetrically
+    row-max scaled like the MDS safe tier's M: its no-pivot LDL^T exists
+    with moderate growth, so two blockings agree to rounding."""
+    rng = np.random.default_rng(seed)
+    nd = n // 8
+    G = rng.standard_normal((nd, nd))
+    K = G @ G.T / nd + np.eye(nd)
+    J = rng.standard_normal((n - nd, nd))
+    H = rng.standard_normal((n - nd, 8))
+    C = H @ H.T / 8 + np.diag(rng.uniform(0.1, 1.1, n - nd))
+    M = np.block([[K, J.T], [J, -C]])
+    s = 1.0 / np.sqrt(np.abs(M).max(axis=1))
+    return s[:, None] * M * s[None, :]
+
+
+@pytest.fixture(scope="module")
+def jax_lanes():
+    """(jax.numpy, hiop_tpu.linalg.cholesky, hiop_tpu.linalg.ldl_blocked)."""
+    import jax.numpy as jnp
+    from hiop_tpu.linalg import cholesky as jchol
+    from hiop_tpu.linalg import ldl_blocked as jldl
+
+    return jnp, jchol, jldl
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip where there is none (decided when the test runs)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [128, 200, 256])
+def test_plain_cholesky_matches_jax(jax_lanes, n, dtype):
+    jnp, jchol, jldl = jax_lanes
+    A = _spd(n, n).astype(dtype)
+    L = tchol.cholesky(torch.from_numpy(A)).numpy()
+    tol = TOL_CHOL[dtype]
+    scale = np.abs(L).max()
+    Lx = np.asarray(jnp.linalg.cholesky(jnp.asarray(A)))
+    assert np.abs(L - Lx).max() / scale < tol
+    if n % 128 == 0:
+        Lp = np.asarray(jchol.pallas_cholesky(jnp.asarray(A), interpret=True))
+        assert np.abs(L - Lp).max() / scale < tol
+    assert np.all(np.triu(L, 1) == 0)
+
+
+@pytest.mark.parametrize("n,bad", [(3, None), (200, 150)])
+def test_plain_cholesky_non_pd_gives_nan_lower(jax_lanes, n, bad):
+    jnp, jchol, jldl = jax_lanes
+    """jnp.linalg.cholesky's failure semantics, which the quick tier's
+    ok = all(isfinite(L)) relies on: an all-NaN lower triangle."""
+    if bad is None:
+        A = np.array([[1.0, 2.0, 0.0], [2.0, 1.0, 0.0], [0.0, 0.0, 1.0]])
+    else:
+        A = _spd(n, 3)
+        A[bad, bad] = -1.0
+    L = tchol.cholesky(torch.from_numpy(A)).numpy()
+    Lx = np.asarray(jnp.linalg.cholesky(jnp.asarray(A)))
+    lower = np.tril(np.ones((n, n), dtype=bool))
+    assert np.all(np.isnan(L[lower])) and np.all(L[~lower] == 0)
+    assert np.array_equal(np.isnan(L), np.isnan(Lx))
+
+
+@pytest.mark.parametrize("n", [128, 200, 256])
+def test_plain_ldl_matches_jax_lanes(jax_lanes, n):
+    jnp, jchol, jldl = jax_lanes
+    M = _saddle(n, n)
+    f = tldl.ldl_factor(torch.from_numpy(M))
+    for use_pallas in (False, True):
+        fj = jldl._ldl_factor_impl(jnp.asarray(M), use_pallas=use_pallas, interpret=use_pallas)
+        assert np.abs(f.L.numpy() - np.asarray(fj.L)).max() < 1e-9
+        assert np.abs(f.d.numpy() - np.asarray(fj.d)).max() < 1e-9
+        assert int(f.n_neg) == int(fj.n_neg)
+        assert bool(f.ok) == bool(fj.ok)
+    assert int(f.n_neg) == int(np.sum(np.linalg.eigvalsh(M) < 0))
+
+
+def test_plain_ldl_float32_matches_xla_lane(jax_lanes):
+    jnp, jchol, jldl = jax_lanes
+    M = _saddle(200, 5).astype(np.float32)
+    f = tldl.ldl_factor(torch.from_numpy(M))
+    fj = jldl._ldl_factor_impl(jnp.asarray(M), use_pallas=False, interpret=False)
+    assert np.abs(f.d.numpy() - np.asarray(fj.d)).max() / np.abs(np.asarray(fj.d)).max() < 1e-3
+    assert int(f.n_neg) == int(fj.n_neg) and bool(f.ok) == bool(fj.ok)
+
+
+@pytest.mark.parametrize("k", [63, 100])
+def test_plain_ldl_breakdown(jax_lanes, k):
+    jnp, jchol, jldl = jax_lanes
+    """An exact zero pivot (inside a diagonal block, and across the edge of
+    one) gives d = 0, a zeroed column and ok = False, as in the JAX lane."""
+    M = np.eye(200)
+    M[k, k + 1] = M[k + 1, k] = M[k + 1, k + 1] = 1.0
+    f = tldl.ldl_factor(torch.from_numpy(M))
+    fj = jldl._ldl_factor_impl(jnp.asarray(M), use_pallas=False, interpret=False)
+    assert not bool(f.ok) and not bool(fj.ok)
+    assert float(f.d[k + 1]) == 0.0 and np.all(np.isfinite(f.L.numpy()))
+    assert np.abs(f.d.numpy() - np.asarray(fj.d)).max() < 1e-12
+
+
+@pytest.mark.parametrize("k_rhs", [None, 3])
+def test_ldl_solve_matches_jax(jax_lanes, k_rhs):
+    jnp, jchol, jldl = jax_lanes
+    n = 150
+    M = _saddle(n, 11)
+    rng = np.random.default_rng(12)
+    b = rng.standard_normal(n if k_rhs is None else (n, k_rhs))
+    f = tldl.ldl_factor(torch.from_numpy(M))
+    x = tldl.ldl_solve(f, torch.from_numpy(b)).numpy()
+    fj = jldl._ldl_factor_impl(jnp.asarray(M), use_pallas=False, interpret=False)
+    xj = np.asarray(jldl.ldl_solve(fj, jnp.asarray(b)))
+    assert x.shape == b.shape
+    assert np.abs(x - xj).max() / np.abs(xj).max() < 1e-9
+    assert np.abs(M @ x - b).max() < 1e-8
+
+
+def test_cpu_tensors_take_the_plain_version():
+    kernels.stats.reset()
+    A = torch.from_numpy(_spd(70, 1))
+    assert torch.equal(tchol.cholesky(A), tchol.cholesky_plain(A))
+    L, d = tldl.ldl_nopiv(A)
+    Lp, dp = tldl.ldl_nopiv_plain(A)
+    assert torch.equal(L, Lp) and torch.equal(d, dp)
+    assert sum(kernels.stats.launches.values()) == 0
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    A = torch.eye(4, dtype=torch.float64)
+    with pytest.raises(ValueError):
+        tchol.cholesky_cuda(A)
+    with pytest.raises(ValueError):
+        tldl.ldl_nopiv_cuda(A)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-10), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("n", [1, 37, 64, 65, 128, 300, 1000])
+def test_cuda_cholesky_matches_plain(cuda_device, n, dtype, tol):
+    A = torch.from_numpy(_spd(n, n) / n).to(dtype).to(cuda_device)
+    before = kernels.stats.launches["cholesky"]
+    L = tchol.cholesky(A)
+    torch.cuda.synchronize()
+    assert kernels.stats.launches["cholesky"] == before + 1
+    Lp = tchol.cholesky_plain(A)
+    assert float((L - Lp).abs().max() / Lp.abs().max()) < tol
+    A[n // 2, n // 2] = -1.0
+    L = tchol.cholesky(A)
+    lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=cuda_device))
+    assert bool(torch.isnan(L[lower]).all()) and bool((L[~lower] == 0).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, 1e-9), (torch.float32, 1e-3)])
+@pytest.mark.parametrize("n", [148, 294, 1000])
+def test_cuda_ldl_matches_plain(cuda_device, n, dtype, tol):
+    M = _saddle(n, n)
+    Mt = torch.from_numpy(M).to(dtype).to(cuda_device)
+    f = tldl.ldl_factor(Mt)
+    Lp, dp = tldl.ldl_nopiv_plain(tldl._pad_sym(Mt, f.L.shape[0]))
+    fp = tldl.ldl_factors(Mt, Lp, dp)
+    assert bool(f.ok) == bool(fp.ok) and int(f.n_neg) == int(fp.n_neg)
+    assert float((f.L - Lp).abs().max() / Lp.abs().max()) < tol
+    assert float((f.d - dp).abs().max() / dp.abs().max()) < tol
