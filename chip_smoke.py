@@ -7,16 +7,23 @@ the ``hiop_tpu`` package. Phases, in order (any failed check raises, and
 the script exits nonzero):
 
 1. device: the card's name and power limit;
-2. build: compile the hand-written kernels from ``hiop_tpu_torch/csrc``;
+2. build: compile the hand-written kernels from ``hiop_tpu_torch/csrc``,
+   and the native host library (``hiop_tpu_torch/native``, ``g++``), which
+   must load: without it the safe ladder loses its ``schur_sparse_ldl``
+   tier and no longer follows ``hiop_tpu``'s;
 3. kernels vs plain: each kernel against its plain PyTorch version on the
    card, in f64 and f32, at small ragged sizes and at the main path's
-   shapes; breakdown semantics; CUDA-event timings beside the bound and,
-   where one exists, the one PyTorch call that computes the same function;
+   shapes; a second factorization of each main-path matrix must repeat the
+   first bit for bit; breakdown semantics; CUDA-event timings beside the
+   bound and, where one exists, the one PyTorch call that computes the same
+   function;
 4. main path, ``mds_ex1`` 400/100 (the options of HiOp's NlpMdsEx1 example):
    Solve_Success at the saved objective, through the Cholesky kernel;
 5. main path, ACOPF B=32 to convergence with ``linear_solver_dense=auto``
-   (the device no-pivot LDL^T tier, then host LU): the saved objective,
-   through both kernels;
+   (safe ladder: the native bordered sparse LDL^T on the host, the device
+   no-pivot LDL^T, host LU): the saved objective, through both kernels and
+   at least one ``schur_sparse_ldl`` factorization; prints the safe tiers
+   in the order they ran;
 6. main path at full width, ACOPF B=512 (S is 4608^2, the saddle 4710^2),
    capped at ``B512_MAX_ITER`` iterations: both kernels at those sizes, a
    finite objective, per-iteration times. ``chip_measure.py`` runs the
@@ -30,6 +37,7 @@ and reads them just after. The last three lines of standard output are the
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -43,13 +51,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 
-#: ACOPF B=512 phase: iteration cap. Iterations 0-4 run the quick tier (the
-#: Cholesky of S, 4608^2); the chronic-regularization escalation moves to
-#: the device LDL^T tier (the 4710^2 saddle) at iteration 5; from iteration
-#: 9 on, the ladder's next tier is the host LU + eigen inertia (lu_eig),
-#: seconds per iteration at 4710^2, and the solve needs hundreds of
-#: iterations, far more than a smoke run can wait for
-B512_MAX_ITER = 8
+#: ACOPF B=512 phase: iteration cap. On the card's ladder with the native
+#: library, iterations 0-3 run the quick tier (the Cholesky of S, 4608^2),
+#: 4-7 the bordered sparse tier (schur_sparse_ldl, host), 8-11 the device
+#: LDL^T (the 4710^2 saddle, padded to 4736^2), and from iteration 12 on the
+#: host LU + eigen inertia (lu_eig), seconds per iteration at 4710^2
+#: (test_acopf512_card_ladder_native_tiers_match_jax, the same sequence in
+#: hiop_tpu and the port on the CPU). The cap stops inside the device
+#: LDL^T stretch
+B512_MAX_ITER = 10
 
 
 def _log(*a) -> None:
@@ -78,7 +88,8 @@ def _bound_ms(n: int, itemsize: int, dtype: str):
 
 
 def _event_ms(torch, fn, reps: int) -> float:
-    fn()
+    for _ in range(3):  # the first call captures a kernel's graph; then the clocks ramp
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -131,10 +142,12 @@ def phase_kernels(torch, dev):
         for n in (1, 37, 128, 300, 102, 4608):
             A = _spd(torch, n, n, dt, dev)
             L = chol.cholesky(A)
+            L2 = chol.cholesky(A)
             Lp = chol.cholesky_plain(A)
             torch.cuda.synchronize()
             err = _rel(torch, L, Lp)
             _check(err <= tol[dt], f"cholesky {dname} n={n}: rel err {err:.3e}")
+            _check(torch.equal(L, L2), f"cholesky {dname} n={n}: two factorizations differ")
             big = n >= 1000
             ms = _event_ms(torch, lambda: chol.cholesky(A), 10 if big else 50)
             plain_ms = _event_ms(torch, lambda: chol.cholesky_plain(A), 1 if big else 3)
@@ -160,6 +173,7 @@ def phase_kernels(torch, dev):
         for n in (148, 294, 4710):
             M, m = _saddle(torch, n, n, dt, dev)
             f = ldl.ldl_factor(M)
+            f2 = ldl.ldl_factor(M)
             n_p = f.L.shape[0]
             A = ldl._pad_sym(M, n_p)
             Lp, dp = ldl.ldl_nopiv_plain(A)
@@ -171,6 +185,8 @@ def phase_kernels(torch, dev):
                    f"{bool(fp.ok)}/{int(fp.n_neg)}")
             _check(bool(f.ok) and int(f.n_neg) == m, f"ldl {dname} n={n}: inertia {int(f.n_neg)} != {m}")
             _check(max(eL, ed) <= tol_ldl[dt], f"ldl {dname} n={n}: rel err L {eL:.3e} d {ed:.3e}")
+            _check(torch.equal(f.L, f2.L) and torch.equal(f.d, f2.d),
+                   f"ldl {dname} n={n}: two factorizations differ")
             big = n >= 1000
             ms = _event_ms(torch, lambda: ldl.ldl_nopiv(A), 10 if big else 50)
             plain_ms = _event_ms(torch, lambda: ldl.ldl_nopiv_plain(A), 1 if big else 3)
@@ -192,6 +208,27 @@ def phase_kernels(torch, dev):
             _check(not bool(f.ok) and not bool(fp.ok) and float(f.d[k + 1]) == 0.0,
                    f"ldl {dname}: an exact zero pivot at {k + 1} must give ok=False")
     return rows
+
+
+@contextlib.contextmanager
+def _tier_log(kkt_mds):
+    """Record the safe tier of every safe-tier factorization in order."""
+    log = []
+    dense, bordered = kkt_mds.factorize_safe, kkt_mds.factorize_safe_schur
+
+    def safe(*a, host=False, **k):
+        log.append("lu_eig" if host else "ldl_nopiv")
+        return dense(*a, host=host, **k)
+
+    def schur(*a, **k):
+        log.append("schur_sparse_ldl")
+        return bordered(*a, **k)
+
+    kkt_mds.factorize_safe, kkt_mds.factorize_safe_schur = safe, schur
+    try:
+        yield log
+    finally:
+        kkt_mds.factorize_safe, kkt_mds.factorize_safe_schur = dense, bordered
 
 
 def _solve_phase(torch, name: str, run, need: dict):
@@ -243,6 +280,12 @@ def main() -> int:
     K.load()
     _log(f"[2] build: {time.perf_counter() - t0:.2f} s "
          f"({'compiled' if K.last_build else 'already built'})")
+    from hiop_tpu_torch.native import ldl as native_ldl
+
+    t0 = time.perf_counter()
+    _check(native_ldl.native_available(),
+           "the native host library (hiop_tpu_torch/native, g++) did not build or load")
+    _log(f"  native host library loaded ({time.perf_counter() - t0:.2f} s)")
 
     _log("[3] kernels vs plain on the card")
     rows = phase_kernels(torch, dev)
@@ -258,10 +301,21 @@ def main() -> int:
            f"mds_ex1: obj {r.obj!r} vs saved {mds_ex1.SELFCHECK_OBJ!r}")
 
     _log("[5] main path: ACOPF B=32, linear_solver_dense=auto")
-    r, _, _, _ = _solve_phase(
-        torch, "acopf B=32",
-        lambda: acopf_mds.solve(32, verbosity_level=0, linear_solver_dense="auto"),
-        {"cholesky": "quick tier", "ldl_nopiv": "device safe tier"})
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+
+    with _tier_log(kkt_mds) as tiers:
+        r, _, _, _ = _solve_phase(
+            torch, "acopf B=32",
+            lambda: acopf_mds.solve(32, verbosity_level=0, linear_solver_dense="auto"),
+            {"cholesky": "quick tier", "ldl_nopiv": "device safe tier"})
+    runs = []
+    for t in tiers:
+        if runs and runs[-1][0] == t:
+            runs[-1][1] += 1
+        else:
+            runs.append([t, 1])
+    _log("  acopf B=32 safe tiers in order: " + ", ".join(f"{t} x{k}" for t, k in runs))
+    _check("schur_sparse_ldl" in tiers, "acopf B=32: no schur_sparse_ldl factorization")
     ref, tol = acopf_mds.SELFCHECK[32]
     _check(r.status.is_success, f"acopf B=32: status {r.status.name}")
     _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)), f"acopf B=32: obj {r.obj!r} vs saved {ref!r}")

@@ -8,16 +8,17 @@
 // path therefore never ran it.  This kernel takes f32 and f64 at any n.
 //
 // What bounds it on an H100: the n^3/3 flops of the trailing updates
-// (operations, not bytes: the factor is n^2 words, read and written
-// O(n/NB) times, while the work grows as n^3), and, below n ~ 2000, the
-// chain of n/NB diagonal-block steps that no parallelism shortens.  The
-// design keeps the updates in a tiled product (64 x 64 output tiles,
-// 4 x 4 register tiles per thread, 16-deep shared-memory staging) over the
-// lower triangle only, and keeps each 64 x 64 diagonal block, with the
-// inverse of its factor built in the same Crout loop, in the registers of
-// one CTA (one barrier per column), so that the panel becomes a product
-// with that inverse.  The FP64 tensor cores (DMMA), TMA and a persistent
-// trailing update are not used yet.
+// (operations: 0.49 ms at 4608^2 at the 67 TFLOP/s FP64 tensor-core peak),
+// the HBM traffic of those updates (the trailing matrix is read and written
+// once per update), and the chain of n/64 diagonal-block steps, each
+// latency-bound, that no parallelism shortens.  The design
+// (dense_blocked.cuh) answers each: the updates are f64 DMMA tile products
+// (mma.sync m16n8k8) delayed to rank 256, so the trailing matrix moves a
+// quarter as often as with rank-64 updates; the diagonal block is factored
+// recursively by warp-level 32-wide leaves (register rows, shared-memory
+// broadcasts, no block barrier per column) that also build the inverse of
+// the block's factor, so the panel is a DMMA product with it; and the
+// ~220 launches of one factorization replay as one CUDA graph.
 //
 // Failure semantics follow jnp.linalg.cholesky, which the f64 main path of
 // hiop_tpu uses: a pivot that is not finite and positive makes the whole
@@ -31,8 +32,9 @@
 namespace {
 
 template <typename T>
-__global__ void nan_fill_if_failed(T* __restrict__ W, int n, const int* __restrict__ info) {
-  if (*info == 0) return;
+__global__ void nan_fill_if_failed(const Args* __restrict__ args, int n) {
+  if (*args->info == 0) return;
+  T* W = static_cast<T*>(args->W);
   const long long total = (long long)n * n;
   for (long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x; idx < total;
        idx += (long long)gridDim.x * blockDim.x) {
@@ -42,24 +44,31 @@ __global__ void nan_fill_if_failed(T* __restrict__ W, int n, const int* __restri
 }
 
 template <typename T>
-int cholesky(const void* A, void* L, int n, void* X, void* info, void* stream) {
-  cudaStream_t s = reinterpret_cast<cudaStream_t>(stream);
-  T* W = static_cast<T*>(L);
-  int rc = blocked_factor<T, false>(static_cast<const T*>(A), W, n, static_cast<T*>(X),
-                                    nullptr, nullptr, static_cast<int*>(info), s);
-  if (rc) return rc;
-  nan_fill_if_failed<T><<<grid_for((long long)n * n, 256), 256, 0, s>>>(W, n, static_cast<int*>(info));
-  return (int)cudaGetLastError();
+int cholesky(const void* A, void* L, int n, void* X, void* info, void* args, void* stream) {
+  const Args in{A, L, X, nullptr, nullptr, static_cast<int*>(info)};
+  Args* dev_args = static_cast<Args*>(args);
+  return blocked_factor<T, false>(in, dev_args, n, reinterpret_cast<cudaStream_t>(stream),
+                                  [&](cudaStream_t cs) {
+                                    nan_fill_if_failed<T><<<grid_for((long long)n * n, 256), 256, 0, cs>>>(
+                                        dev_args, n);
+                                    return (int)cudaGetLastError();
+                                  });
 }
 
 }  // namespace
 
 // A: n x n row-major input (lower triangle read); L: n x n output;
-// X: NB x NB scratch; info: one int, zero on entry.
-extern "C" int hiop_cholesky_f64(const void* A, void* L, int n, void* X, void* info, void* stream) {
-  return cholesky<double>(A, L, n, X, info, stream);
+// X: NB x NB scratch; info: one int, zero on entry; args: a device buffer
+// of sizeof(Args) bytes, the same one for every call of one (n, dtype) on
+// one stream (its address keys the cached CUDA graph).
+extern "C" int hiop_cholesky_f64(const void* A, void* L, int n, void* X, void* info, void* args,
+                                 void* stream) {
+  return cholesky<double>(A, L, n, X, info, args, stream);
 }
 
-extern "C" int hiop_cholesky_f32(const void* A, void* L, int n, void* X, void* info, void* stream) {
-  return cholesky<float>(A, L, n, X, info, stream);
+extern "C" int hiop_cholesky_f32(const void* A, void* L, int n, void* X, void* info, void* args,
+                                 void* stream) {
+  return cholesky<float>(A, L, n, X, info, args, stream);
 }
+
+extern "C" int hiop_args_bytes() { return (int)sizeof(Args); }

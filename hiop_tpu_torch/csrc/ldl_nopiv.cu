@@ -9,14 +9,14 @@
 // (2 n_p^2 <= 2048^2, f32/bf16 only), so the f64 main path used the XLA
 // lane.  This kernel takes f32 and f64 at any size.
 //
-// What bounds it on an H100: the n^3/3 flops of the trailing updates
-// A22 -= P diag(d) P^T (operations), and the serial chain of diagonal
-// blocks below n ~ 2000.  Same design as cholesky.cu: a Crout + unit-lower
-// inverse of each 64 x 64 diagonal block in one CTA's registers, the
-// scaled panel P = W X^T diag(d)^-1 as a product with that inverse, and a
-// tiled rank-64 update of the lower triangle.
-// The no-pivot factor is unique, so the block width (64 here, 128 on the
-// TPU) does not change the result beyond rounding.
+// What bounds it on an H100: as cholesky.cu, the n^3/3 flops and the HBM
+// traffic of the trailing updates A22 -= P diag(d) P^T, and the serial
+// chain of diagonal blocks.  Same design (dense_blocked.cuh): recursive
+// warp-level factor of each 64 x 64 diagonal block with its unit-lower
+// inverse, the scaled panel P = W X^T diag(d)^-1 and the rank-256 delayed
+// updates as f64 DMMA tile products (f32: FP32 FMAs), one CUDA graph per
+// factorization.  The no-pivot factor is unique, so the blocking (64 and
+// 256 here, 128 on the TPU) does not change the result beyond rounding.
 //
 // Semantics: a zero pivot gives d = 0 and a zeroed column, not NaN.  The
 // identity padding to a multiple of 128 and the ok / n_neg reductions stay
@@ -29,23 +29,23 @@
 namespace {
 
 template <typename T>
-int ldl_nopiv(const void* A, void* L, void* d, int n, void* X, void* invd, void* stream) {
-  return blocked_factor<T, true>(static_cast<const T*>(A), static_cast<T*>(L), n,
-                                 static_cast<T*>(X), static_cast<T*>(d),
-                                 static_cast<T*>(invd), nullptr,
-                                 reinterpret_cast<cudaStream_t>(stream));
+int ldl_nopiv(const void* A, void* L, void* d, int n, void* X, void* invd, void* args, void* stream) {
+  const Args in{A, L, X, d, invd, nullptr};
+  return blocked_factor<T, true>(in, static_cast<Args*>(args), n, reinterpret_cast<cudaStream_t>(stream),
+                                 [](cudaStream_t) { return 0; });
 }
 
 }  // namespace
 
 // A: n x n row-major input (lower triangle read); L: n x n unit-lower
-// output; d: n pivots; X: NB x NB scratch; invd: NB scratch.
+// output; d: n pivots; X: NB x NB scratch; invd: NB scratch; args: as for
+// hiop_cholesky_*.
 extern "C" int hiop_ldl_nopiv_f64(const void* A, void* L, void* d, int n, void* X, void* invd,
-                                  void* stream) {
-  return ldl_nopiv<double>(A, L, d, n, X, invd, stream);
+                                  void* args, void* stream) {
+  return ldl_nopiv<double>(A, L, d, n, X, invd, args, stream);
 }
 
 extern "C" int hiop_ldl_nopiv_f32(const void* A, void* L, void* d, int n, void* X, void* invd,
-                                  void* stream) {
-  return ldl_nopiv<float>(A, L, d, n, X, invd, stream);
+                                  void* args, void* stream) {
+  return ldl_nopiv<float>(A, L, d, n, X, invd, args, stream);
 }

@@ -17,14 +17,15 @@ with J_s K_s^{-1} J_s^T assembled from the sparse-block triplets
 (:func:`schur_js_triplets`). Failure of K_d's Cholesky signals wrong
 inertia, failure of S a singular Jacobian.
 
-Safe tier: the partly reduced (n_d + m) saddle, factorized by the
-inertia-revealing no-pivot LDL^T kernel on the device
-(:mod:`hiop_tpu_torch.linalg.ldl_blocked`) or by the host LU + eigen
-inertia (``lu_eig``).
+Safe tiers, in the ladder's order: the bordered sparse host tier
+(:func:`factorize_safe_schur`: the native sparse LDL^T of the Schur block
+plus a small dense border, when the native library builds); the partly
+reduced (n_d + m) saddle, factorized by the inertia-revealing no-pivot
+LDL^T kernel on the device (:mod:`hiop_tpu_torch.linalg.ldl_blocked`) or by
+the host LU + eigen inertia (``lu_eig``).
 
-The fused and mixed-precision factorizations of ``hiop_tpu`` and the
-bordered sparse host tier (``factorize_safe_schur``) are not ported yet
-(ROADMAP.md section 1).
+The fused and mixed-precision factorizations of ``hiop_tpu`` are not
+ported yet (ROADMAP.md section 1).
 """
 
 from __future__ import annotations
@@ -277,3 +278,192 @@ def solve_safe(f: MdsSafeFactors, rxs_t, rxd_t, rd_t, ryc, ryd):
     dxs = f.ks_inv * (rxs_t - f.Js.T @ dy)
     dd = dd_inv * (rd_t + dyd)
     return dxs, dxd, dd, dyc, dyd
+
+
+def _host(a) -> np.ndarray:
+    """Host numpy view of a tensor or array, keeping its dtype."""
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+class MdsSchurHostFactors(NamedTuple):
+    """Bordered sparse safe-tier factors (host): the MDS saddle
+
+      M = [ K_d    J_dn^T ]      N = -C,  C = Js Ks^{-1} Js^T (signed)
+          [ J_dn   -C     ]               + blkdiag(delta_cc I, Dd_inv + delta_cd)
+
+    is mostly SPARSE — C has the network-local pattern of same-column
+    Jacobian nonzero pairs — with only an (m, n_d) dense border from the
+    dense block. Factor N with the native inertia-reporting simplicial
+    LDL^T (symbolic cached per pattern), Schur the n_d dense columns onto
+    S_d = K_d - J_dn^T N^{-1} J_dn (tiny dense sym-indefinite, LAPACK
+    sytrf), and combine inertias by Haynsworth additivity:
+    n_neg(M) = n_neg(N) + n_neg(S_d). The same structure exploitation as
+    the reference's sparse MA57 safe path (hiopKKTLinSysSparse.cpp) rather
+    than its dense MAGMA one. Every field is a host numpy object."""
+    fact: object          # NativeLdlFactorization of N = -C, or None
+    sd_fact: object       # (ldu, ipiv) LAPACK sytrf factors of S_d
+    W: object             # (m, n_d) = N^{-1} J_dn
+    Jdn: object           # (m, n_d) np
+    js_rows: object       # stacked triplet structure of Js (np int)
+    js_cols: object
+    js_vals: object       # np float64
+    ks_inv: object        # (n_s,) np signed inverse
+    dd_tot: object        # (m_ineq,) np
+    nd: int
+    mc: int
+    md: int
+    host: bool
+    n_neg_eig: object     # n_neg(N) + n_neg(S_d) + n_neg(ks); -1 on breakdown
+    ok: object
+
+
+def _sytrf_inertia(ldu, ipiv):
+    """(n_pos, n_neg, n_zero) from LAPACK sytrf factors (lower): 1x1 pivots
+    by sign, 2x2 pivots (ipiv < 0) by det/trace of the block."""
+    n = ldu.shape[0]
+    d = np.diag(ldu)
+    npos = nneg = nzero = 0
+    k = 0
+    while k < n:
+        if ipiv[k] < 0:
+            a11, a22, e = d[k], d[k + 1], ldu[k + 1, k]
+            det = a11 * a22 - e * e
+            if det < 0:
+                npos += 1
+                nneg += 1
+            elif a11 + a22 > 0:
+                npos += 2
+            else:
+                nneg += 2
+            k += 2
+        else:
+            if d[k] > 0:
+                npos += 1
+            elif d[k] < 0:
+                nneg += 1
+            else:
+                nzero += 1
+            k += 1
+    return npos, nneg, nzero
+
+
+def factorize_safe_schur(
+    hss, Hdd, Dxs, Dxd, Dd, Jdn, js_rows, js_cols, js_vals, js_pairs,
+    delta_wx, delta_wd, delta_cc, delta_cd, mc: int, md: int,
+) -> MdsSchurHostFactors:
+    """Bordered sparse factorization of the MDS saddle (see
+    :class:`MdsSchurHostFactors`), on the host: tensors are copied off the
+    solver's device. Inertia acceptance and breakdown routing follow
+    :func:`factorize_safe`'s conventions (``n_neg_eig = -1`` with
+    ``ok=True`` routes to the singularity handler)."""
+    import scipy.sparse as sp
+    from scipy.linalg import lapack as _lapack
+
+    from hiop_tpu_torch.native.ldl import NativeLdlFactorization, SingularError
+
+    hss, Hdd, Dxs, Dxd, Dd, Jdn, js_vals = (
+        _host(a).astype(np.float64, copy=False) for a in (hss, Hdd, Dxs, Dxd, Dd, Jdn, js_vals)
+    )
+    js_rows, js_cols = _host(js_rows), _host(js_cols)
+    m = mc + md
+    nd = Hdd.shape[0]
+
+    tol_ks = 1e-14
+    ks = hss + Dxs + delta_wx
+    n_zero_ks = int(np.sum(np.abs(ks) <= tol_ks))
+    n_neg_ks = int(np.sum(ks < -tol_ks))
+    ks_inv = np.where(np.abs(ks) > tol_ks, 1.0 / np.where(ks == 0, 1.0, ks), 0.0)
+    dd_tot = Dd + delta_wd
+    dd_inv = np.where(dd_tot > 0, 1.0 / np.maximum(dd_tot, 1e-300), 0.0)
+
+    def fail(n_neg):
+        # ok=True + n_neg_eig=-1: the strategy's acceptance test routes this
+        # to the SINGULARITY handler (delta_cc bump) — a breakdown of the
+        # sparse no-pivot LDL^T on N = -C most often means a rank-deficient
+        # Schur block, not wrong curvature. fact=None can never be solved:
+        # n_neg_eig=-1 != mc + md guarantees rejection before any solve.
+        return MdsSchurHostFactors(
+            None, None, None, Jdn, js_rows, js_cols, js_vals, ks_inv,
+            dd_tot, nd, mc, md, True, n_neg, True,
+        )
+
+    if n_zero_ks > 0:
+        return fail(-1)
+
+    # N = -C sparse: pairwise JKJt entries + the diagonal block
+    pa, pb, pvar, prow, pcol = (_host(a) for a in js_pairs)
+    vals = -(js_vals[pa] * js_vals[pb] * ks_inv[pvar])
+    diag = -np.concatenate(
+        [np.full(mc, delta_cc), dd_inv + delta_cd]
+    )
+    rows = np.concatenate([prow, np.arange(m)])
+    cols = np.concatenate([pcol, np.arange(m)])
+    N = sp.coo_matrix(
+        (np.concatenate([vals, diag]), (rows, cols)), shape=(m, m)
+    ).tocsc()
+    try:
+        nf = NativeLdlFactorization(N, ordering="amd")
+    except (SingularError, RuntimeError):
+        return fail(-1)
+    _, n_neg_N, n_zero_N = nf.inertia()
+    if n_zero_N > 0:
+        return fail(-1)
+
+    W = nf.solve(Jdn) if nd else np.zeros((m, 0))
+    Kd = Hdd + np.diag(Dxd + delta_wx)
+    Sd = Kd - Jdn.T @ W
+    if nd:
+        ldu, ipiv, info = _lapack.dsytrf(Sd, lower=1)
+        if info != 0 or not np.all(np.isfinite(ldu)):
+            return fail(-1)
+        _, n_neg_Sd, n_zero_Sd = _sytrf_inertia(ldu, ipiv)
+        if n_zero_Sd > 0:
+            return fail(-1)
+        sd_fact = (ldu, ipiv)
+    else:
+        sd_fact = None
+        n_neg_Sd = 0
+
+    n_neg = n_neg_N + n_neg_Sd + n_neg_ks
+    return MdsSchurHostFactors(
+        nf, sd_fact, W, Jdn, js_rows, js_cols, js_vals, ks_inv,
+        dd_tot, nd, mc, md, True, n_neg, True,
+    )
+
+
+def solve_safe_schur(f: MdsSchurHostFactors, rxs_t, rxd_t, rd_t, ryc, ryd):
+    """Direction recovery for :func:`factorize_safe_schur` (host numpy; Js
+    enters only through triplet matvecs — no dense (m, n_s) product). The
+    directions come back as tensors on the device and in the dtype of
+    ``rxs_t``."""
+    from scipy.linalg import lapack as _lapack
+
+    like = rxs_t
+    rxs, rxd, rd, ryc, ryd = (
+        _host(a).astype(np.float64, copy=False) for a in (rxs_t, rxd_t, rd_t, ryc, ryd)
+    )
+    m = f.mc + f.md
+    dd_inv = np.where(f.dd_tot > 0, 1.0 / np.maximum(f.dd_tot, 1e-300), 0.0)
+
+    ks_rxs = f.ks_inv * rxs
+    js_ksr = np.zeros(m)
+    np.add.at(js_ksr, f.js_rows, f.js_vals * ks_rxs[f.js_cols])
+    r2 = np.concatenate([ryc, ryd + dd_inv * rd]) - js_ksr
+
+    t = f.fact.solve(r2)
+    if f.nd:
+        rhs_d = rxd - f.Jdn.T @ t
+        dxd, _ = _lapack.dsytrs(f.sd_fact[0], f.sd_fact[1], rhs_d, lower=1)
+        dy = t - f.W @ dxd
+    else:
+        dxd = rxd[:0]
+        dy = t
+    jst_dy = np.zeros(f.ks_inv.shape[0])
+    np.add.at(jst_dy, f.js_cols, f.js_vals * dy[f.js_rows])
+    dxs = f.ks_inv * (rxs - jst_dy)
+    dyc, dyd = dy[: f.mc], dy[f.mc:]
+    dd = dd_inv * (rd + dyd)
+    return tuple(
+        torch.as_tensor(a, dtype=like.dtype, device=like.device)
+        for a in (dxs, dxd, dd, dyc, dyd)
+    )

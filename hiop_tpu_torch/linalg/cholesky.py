@@ -6,9 +6,12 @@ main path used ``jnp.linalg.cholesky``. Here one function serves both:
 
 - a CUDA tensor goes to the hand-written kernel (``csrc/cholesky.cu``,
   f32/f64, any n): per 64-wide block column, one CTA factors the diagonal
-  block in registers (a Crout that builds the inverse of its factor
-  in the same loop), a panel kernel forms P = W L_kk^{-T}, and a tiled
-  kernel applies A22 -= P P^T to the lower triangle;
+  block as two 32-wide leaves (one warp each, in registers, building the
+  inverse of the factor in the same loop), a panel kernel forms
+  P = W L_kk^{-T}, and the columns right of it inside the 256-wide outer
+  block take A22 -= P P^T; after each outer block one rank-256 update
+  covers the rest of the lower triangle (f64 tile products on the DMMA
+  tensor cores, the whole launch sequence replayed as one CUDA graph);
 - a CPU tensor goes to :func:`cholesky_plain`, which repeats that blocked
   arithmetic with torch operations.
 
@@ -28,6 +31,8 @@ import torch
 from hiop_tpu_torch.linalg import kernels as _k
 
 NB = _k.NB
+OB = _k.OB
+LEAF = _k.LEAF
 
 
 def cholesky(A: torch.Tensor) -> torch.Tensor:
@@ -52,50 +57,77 @@ def cholesky_cuda(A: torch.Tensor) -> torch.Tensor:
     fn = getattr(_k.load(), "hiop_cholesky_" + _k.dtype_suffix(A.dtype))
     start = _k.stats.begin()
     rc = fn(A.data_ptr(), L.data_ptr(), n, X.data_ptr(), info.data_ptr(),
+            _k.args_buffer("cholesky", A).data_ptr(),
             torch.cuda.current_stream(A.device).cuda_stream)
     _k.raise_on_error(rc, "cholesky")
     _k.stats.count("cholesky", n, A.dtype, start)
     return L
 
 
-def _diag_factor(S: torch.Tensor):
-    """Crout of one diagonal block with the inverse of its factor built in
-    the same loop (the kernel's ``diag_factor``). Returns (L_kk, X = L_kk^{-1},
-    bad) where ``bad`` flags a pivot that is not finite and positive."""
+def _leaf(S: torch.Tensor):
+    """Crout of one 32-wide leaf with the inverse of its factor built in
+    the same loop (the kernel's ``leaf32``). Returns (L, X = L^{-1}, pivots)."""
     kb = S.shape[0]
     S = torch.tril(S).clone()
     L = torch.zeros_like(S)
     X = torch.eye(kb, dtype=S.dtype, device=S.device)
-    bad = torch.zeros((), dtype=torch.bool, device=S.device)
     for j in range(kb):
         sjj = S[j, j]
-        bad = bad | ~(torch.isfinite(sjj) & (sjj > 0))
-        piv = torch.sqrt(sjj)
-        inv = 1.0 / piv
+        inv = torch.rsqrt(sjj)
+        piv = sjj * inv
         col = S[j + 1:, j] * inv
-        xrow = X[j, : j + 1] * inv
         L[j, j] = piv
         L[j + 1:, j] = col
         S[j + 1:, j + 1:] -= torch.outer(col, col)
+        xrow = X[j, : j + 1] * inv
         X[j + 1:, : j + 1] -= torch.outer(col, xrow)
         X[j, : j + 1] = xrow
-    return L, X, bad
+    return L, X, torch.diagonal(S).clone()
+
+
+def _diag_factor(S: torch.Tensor):
+    """Factor of one diagonal block and the inverse of that factor, as the
+    kernel's ``diag_factor`` does it: two 32-wide leaves joined by small
+    products. Returns (L_kk, X = L_kk^{-1}, bad) where ``bad`` flags a pivot
+    that is not finite and positive."""
+    kb = S.shape[0]
+    h = min(kb, LEAF)
+    L11, X11, p1 = _leaf(S[:h, :h])
+    if kb == h:
+        return L11, X11, ~(torch.isfinite(p1) & (p1 > 0)).all()
+    L21 = S[h:, :h] @ X11.T
+    L22, X22, p2 = _leaf(S[h:, h:] - torch.tril(L21 @ L21.T))
+    p = torch.cat([p1, p2])
+    L = torch.zeros_like(S)
+    X = torch.zeros_like(S)
+    L[:h, :h], L[h:, :h], L[h:, h:] = L11, L21, L22
+    X[:h, :h], X[h:, h:] = X11, X22
+    X[h:, :h] = -(X22 @ (L21 @ X11))
+    return L, X, ~(torch.isfinite(p) & (p > 0)).all()
 
 
 def cholesky_plain(A: torch.Tensor) -> torch.Tensor:
-    """The kernel's blocked right-looking arithmetic in torch operations
-    (the CPU lane, and the yardstick the kernel is held against)."""
+    """The kernel's blocked arithmetic in torch operations (the CPU lane,
+    and the yardstick the kernel is held against): NB-wide block columns,
+    updates of the columns inside an OB-wide outer block at each block
+    column, and one rank-OB update of the rest after each outer block."""
     n = A.shape[0]
     W = torch.tril(A).clone()
     bad = torch.zeros((), dtype=torch.bool, device=A.device)
-    for k0 in range(0, n, NB):
-        k1 = min(k0 + NB, n)
-        Lkk, X, bad_k = _diag_factor(W[k0:k1, k0:k1])
-        bad = bad | bad_k
-        W[k0:k1, k0:k1] = Lkk
-        if k1 == n:
-            break
-        P = W[k1:, k0:k1] @ X.T
-        W[k1:, k0:k1] = P
-        W[k1:, k1:] -= torch.tril(P @ P.T)
+    for K0 in range(0, n, OB):
+        kend = min(K0 + OB, n)
+        for k0 in range(K0, kend, NB):
+            k1 = min(k0 + NB, n)
+            Lkk, X, bad_k = _diag_factor(W[k0:k1, k0:k1])
+            bad = bad | bad_k
+            W[k0:k1, k0:k1] = Lkk
+            if k1 == n:
+                break
+            P = W[k1:, k0:k1] @ X.T
+            W[k1:, k0:k1] = P
+            if k1 < kend:
+                W[k1:, k1:kend] -= torch.tril(P @ P[: kend - k1].T)
+        if kend < n:
+            P = W[kend:, K0:kend]
+            W[kend:, kend:] -= torch.tril(P @ P.T)
     return torch.where(bad, torch.tril(torch.full_like(W, float("nan"))), W)

@@ -7,8 +7,11 @@ linked into one shared library with a plain C interface, loaded with
 ``ctypes``. The library's name carries a hash of the sources and flags, so
 an edited source is rebuilt and an unchanged one is loaded as it is.
 
-Every C entry point launches on the stream it is given, allocates nothing,
-and returns ``cudaGetLastError()``; the Python wrappers in
+Every C entry point launches on the stream it is given, allocates no
+device memory, and returns the first CUDA error of its launches (0 on
+success). Each replays its factorization's launch sequence as a CUDA graph,
+captured at the first call for a given (kernel, n, dtype) and pointer
+buffer (:func:`args_buffer`); the Python wrappers in
 :mod:`hiop_tpu_torch.linalg.cholesky` and
 :mod:`hiop_tpu_torch.linalg.ldl_blocked` allocate outputs and scratch and
 raise on a nonzero return.
@@ -43,6 +46,10 @@ NVCC_FLAGS = (
 #: block-column width of the kernels (``NB`` in csrc/dense_blocked.cuh); the
 #: wrappers size the diagonal-block scratch with it
 NB = 64
+#: depth of the delayed trailing update (``OB``) and width of the diagonal
+#: block's leaves (``leaf32``); the plain versions block with both
+OB = 4 * NB
+LEAF = 32
 
 
 class KernelStats:
@@ -166,13 +173,37 @@ def load() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             for dt in ("f64", "f32"):
                 fn = getattr(lib, f"hiop_cholesky_{dt}")
-                fn.argtypes = [p, p, i, p, p, p]
+                fn.argtypes = [p, p, i, p, p, p, p]
                 fn.restype = i
                 fn = getattr(lib, f"hiop_ldl_nopiv_{dt}")
-                fn.argtypes = [p, p, p, i, p, p, p]
+                fn.argtypes = [p, p, p, i, p, p, p, p]
                 fn.restype = i
+            lib.hiop_args_bytes.restype = i
+            if lib.hiop_args_bytes() > ARGS_BYTES:
+                raise RuntimeError("kernel library: Args is larger than ARGS_BYTES")
             _lib = lib
         return _lib
+
+
+#: bytes of the device buffer that carries one factorization's pointers
+#: (``Args`` in csrc/dense_blocked.cuh)
+ARGS_BYTES = 64
+_args_buffers: dict = {}
+
+
+def args_buffer(name: str, A):
+    """The device buffer of pointers for kernel ``name`` at A's size, dtype
+    and device. The kernels capture their launch sequence once per buffer
+    as a CUDA graph, so the buffer of one (kernel, n, dtype) lives as long
+    as the process and is reused by every call."""
+    import torch
+
+    key = (name, A.shape[0], A.dtype, A.device)
+    buf = _args_buffers.get(key)
+    if buf is None:
+        buf = torch.empty((ARGS_BYTES // 8,), dtype=torch.int64, device=A.device)
+        _args_buffers[key] = buf
+    return buf
 
 
 def check_input(A, name: str) -> None:

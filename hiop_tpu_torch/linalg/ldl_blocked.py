@@ -13,9 +13,12 @@ inertia count. The factorization itself:
 
 - a CUDA tensor goes to the hand-written kernel (``csrc/ldl_nopiv.cu``,
   f32/f64, any size): per 64-wide block column, one CTA factors the
-  diagonal block in registers (Crout with the unit-lower inverse built
-  in the same loop), a panel kernel forms P = W L_kk^{-T} D_kk^{-1}, and a
-  tiled kernel applies A22 -= P D_kk P^T to the lower triangle;
+  diagonal block as two 32-wide leaves (one warp each, in registers, with
+  the unit-lower inverse built in the same loop), a panel kernel forms
+  P = W L_kk^{-T} D_kk^{-1}, and the columns right of it inside the
+  256-wide outer block take A22 -= P D_kk P^T; after each outer block one
+  rank-256 update covers the rest of the lower triangle (as
+  :mod:`hiop_tpu_torch.linalg.cholesky`);
 - a CPU tensor goes to :func:`ldl_nopiv_plain`, which repeats that blocked
   arithmetic with torch operations.
 
@@ -38,6 +41,8 @@ from hiop_tpu_torch.linalg import kernels as _k
 
 _BLOCK = 128  # padding granularity of hiop_tpu's _ldl_factor_impl
 NB = _k.NB
+OB = _k.OB
+LEAF = _k.LEAF
 
 
 class LdlFactors(NamedTuple):
@@ -87,16 +92,17 @@ def ldl_nopiv_cuda(A: torch.Tensor):
     fn = getattr(_k.load(), "hiop_ldl_nopiv_" + _k.dtype_suffix(A.dtype))
     start = _k.stats.begin()
     rc = fn(A.data_ptr(), L.data_ptr(), d.data_ptr(), n, X.data_ptr(), invd.data_ptr(),
+            _k.args_buffer("ldl_nopiv", A).data_ptr(),
             torch.cuda.current_stream(A.device).cuda_stream)
     _k.raise_on_error(rc, "ldl_nopiv")
     _k.stats.count("ldl_nopiv", n, A.dtype, start)
     return L, d
 
 
-def _diag_factor(S: torch.Tensor):
-    """Unblocked no-pivot LDL^T of one diagonal block with the unit-lower
-    inverse built in the same loop (the kernel's ``diag_factor``; the fused
-    form of hiop_tpu's ``_ldl_diag_block_inv``). Returns (L_kk, d_kk, X)."""
+def _leaf(S: torch.Tensor):
+    """Unblocked no-pivot LDL^T of one 32-wide leaf with the unit-lower
+    inverse built in the same loop (the kernel's ``leaf32``; the fused form
+    of hiop_tpu's ``_ldl_diag_block_inv``). Returns (L, d, X = L^{-1})."""
     kb = S.shape[0]
     S = torch.tril(S).clone()
     L = torch.eye(kb, dtype=S.dtype, device=S.device)
@@ -104,30 +110,59 @@ def _diag_factor(S: torch.Tensor):
     X = torch.eye(kb, dtype=S.dtype, device=S.device)
     for j in range(kb):
         dj = S[j, j]
-        lcol = S[j + 1:, j] * _inv_or_zero(dj)
+        scol = S[j + 1:, j]
+        lcol = scol * _inv_or_zero(dj)
         L[j + 1:, j] = lcol
         d[j] = dj
-        S[j + 1:, j + 1:] -= dj * torch.outer(lcol, lcol)
+        S[j + 1:, j + 1:] -= torch.outer(scol, lcol)
         X[j + 1:, : j + 1] -= torch.outer(lcol, X[j, : j + 1])
     return L, d, X
 
 
+def _diag_factor(S: torch.Tensor):
+    """No-pivot LDL^T of one diagonal block and the inverse of its unit
+    lower factor, as the kernel's ``diag_factor`` does it: two 32-wide
+    leaves joined by small products. Returns (L_kk, d_kk, X)."""
+    kb = S.shape[0]
+    h = min(kb, LEAF)
+    L11, d1, X11 = _leaf(S[:h, :h])
+    if kb == h:
+        return L11, d1, X11
+    T21 = S[h:, :h] @ X11.T
+    L21 = T21 * _inv_or_zero(d1)[None, :]
+    L22, d2, X22 = _leaf(S[h:, h:] - torch.tril(L21 @ T21.T))
+    L = torch.zeros_like(S)
+    X = torch.zeros_like(S)
+    L[:h, :h], L[h:, :h], L[h:, h:] = L11, L21, L22
+    X[:h, :h], X[h:, h:] = X11, X22
+    X[h:, :h] = -(X22 @ (L21 @ X11))
+    return L, torch.cat([d1, d2]), X
+
+
 def ldl_nopiv_plain(A: torch.Tensor):
-    """The kernel's blocked right-looking arithmetic in torch operations
-    (the CPU lane, and the yardstick the kernel is held against)."""
+    """The kernel's blocked arithmetic in torch operations (the CPU lane,
+    and the yardstick the kernel is held against): NB-wide block columns,
+    updates of the columns inside an OB-wide outer block at each block
+    column, and one rank-OB update of the rest after each outer block."""
     n = A.shape[0]
     W = torch.tril(A).clone()
     d = torch.zeros((n,), dtype=A.dtype, device=A.device)
-    for k0 in range(0, n, NB):
-        k1 = min(k0 + NB, n)
-        Lkk, dk, X = _diag_factor(W[k0:k1, k0:k1])
-        W[k0:k1, k0:k1] = Lkk
-        d[k0:k1] = dk
-        if k1 == n:
-            break
-        P = (W[k1:, k0:k1] @ X.T) * _inv_or_zero(dk)[None, :]
-        W[k1:, k0:k1] = P
-        W[k1:, k1:] -= torch.tril((P * dk[None, :]) @ P.T)
+    for K0 in range(0, n, OB):
+        kend = min(K0 + OB, n)
+        for k0 in range(K0, kend, NB):
+            k1 = min(k0 + NB, n)
+            Lkk, dk, X = _diag_factor(W[k0:k1, k0:k1])
+            W[k0:k1, k0:k1] = Lkk
+            d[k0:k1] = dk
+            if k1 == n:
+                break
+            P = (W[k1:, k0:k1] @ X.T) * _inv_or_zero(dk)[None, :]
+            W[k1:, k0:k1] = P
+            if k1 < kend:
+                W[k1:, k1:kend] -= torch.tril((P * dk[None, :]) @ P[: kend - k1].T)
+        if kend < n:
+            P = W[kend:, K0:kend]
+            W[kend:, kend:] -= torch.tril((P * d[None, K0:kend]) @ P.T)
     return W, d
 
 

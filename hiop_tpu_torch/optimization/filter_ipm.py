@@ -14,8 +14,9 @@ fraction-to-boundary -> backtracking filter line search (with SOC) -> dual
 update -> re-evals }.
 
 This slice ports the general loop (``jit_mode=kernels``) in f64 with the
-MDS strategy: the quick Cholesky tier and the safe ladder (device no-pivot
-LDL^T, host LU + eigen inertia). Options and paths that need modules not
+MDS strategy: the quick Cholesky tier and the safe ladder (the native
+bordered sparse LDL^T on the host, device no-pivot LDL^T, host LU + eigen
+inertia). Options and paths that need modules not
 ported yet raise :class:`NotImplementedError` naming the ROADMAP.md item
 that will port them.
 """
@@ -33,6 +34,7 @@ from hiop_tpu_torch.backends.execspace import on_accelerator, resolve_device
 from hiop_tpu_torch.formulation.base import NlpFormulation, to_numpy
 from hiop_tpu_torch.interface.base import IterateCallbackInfo
 from hiop_tpu_torch.kkt import mds as kkt_mds
+from hiop_tpu_torch.native import ldl as native_ldl
 from hiop_tpu_torch.optimization import duals_update as du
 from hiop_tpu_torch.optimization import iterate as it_mod
 from hiop_tpu_torch.optimization import residual as res_mod
@@ -181,10 +183,10 @@ class _MdsStrategy:
     all-Cholesky reduction carries no inertia), pivot-count acceptance on
     the safe tiers, with the same regularization ladder.
 
-    The safe ladder is the one ``hiop_tpu`` builds when its native sparse
-    LDL^T library is unavailable (``filter_ipm.py:1246-1249``): the
-    bordered ``schur_sparse_ldl`` tier waits for ROADMAP item 6's native
-    library."""
+    The safe ladder is ``hiop_tpu``'s: the bordered ``schur_sparse_ldl``
+    host tier first when the triplet Schur pairs exist and the native
+    sparse LDL^T library builds (``native.ldl.native_available()``), then
+    the dense tiers of :func:`_dense_safe_tiers`."""
 
     MAX_REFACT = 10
 
@@ -222,6 +224,14 @@ class _MdsStrategy:
         self._js_pairs = kkt_mds.build_schur_pairs(
             stacked_rows, stacked_cols, nlp.n_sparse, device=dev
         )
+        # bordered sparse host safe tier first (MdsSchurHostFactors): the
+        # saddle's m x m block is network-sparse, so the native
+        # inertia-reporting LDL^T + a tiny dense Schur border beats a dense
+        # (n_d + m)^2 factorization at ACOPF scale
+        if self._js_pairs is not None and native_ldl.native_available():
+            self._safe_tiers = ("schur_sparse_ldl",) + tuple(self._safe_tiers)
+            self._js_rows, self._js_cols = stacked_rows, stacked_cols
+            self._js_pairs_host = tuple(a.cpu().numpy() for a in self._js_pairs)
         self._js_eq = tuple(
             torch.as_tensor(np.asarray(a, dtype=np.int64), device=dev)
             for a in (nlp.jac_sp_eq_rows, nlp.jac_sp_eq_cols)
@@ -273,6 +283,14 @@ class _MdsStrategy:
         with self.stats.kkt.tm_update_fact:
             if self._safe_mode:
                 tier = self._safe_tiers[self._safe_mode - 1]
+                if tier == "schur_sparse_ldl":
+                    return kkt_mds.factorize_safe_schur(
+                        d["hss"], d["Hdd"], d["Dxs"], d["Dxd"], d["Dd"],
+                        torch.cat([d["Jc_d"], d["Jd_d"]], dim=0),
+                        self._js_rows, self._js_cols, d["js_vals"], self._js_pairs_host,
+                        p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd,
+                        self.nlp.m_eq, self.nlp.m_ineq,
+                    )
                 return kkt_mds.factorize_safe(*args, host=(tier == "lu_eig"))
             if self._js_pairs is not None:
                 return kkt_mds.factorize(
@@ -282,9 +300,12 @@ class _MdsStrategy:
 
     def _solve(self, f, rx_t, rd_t, ryc, ryd):
         ns = self.ns
-        solver = (
-            kkt_mds.solve_safe if isinstance(f, kkt_mds.MdsSafeFactors) else kkt_mds.solve
-        )
+        if isinstance(f, kkt_mds.MdsSchurHostFactors):
+            solver = kkt_mds.solve_safe_schur
+        elif isinstance(f, kkt_mds.MdsSafeFactors):
+            solver = kkt_mds.solve_safe
+        else:
+            solver = kkt_mds.solve
         dxs, dxd, dd, dyc, dyd = solver(f, rx_t[:ns], rx_t[ns:], rd_t, ryc, ryd)
         return torch.cat([dxs, dxd]), dd, dyc, dyd
 

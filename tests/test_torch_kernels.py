@@ -17,6 +17,10 @@ from hiop_tpu_torch.linalg import cholesky as tchol
 from hiop_tpu_torch.linalg import kernels
 from hiop_tpu_torch.linalg import ldl_blocked as tldl
 
+# The matrices here are small: torch's intra-op thread pool costs more than it
+# gains, and its spinning threads slow the other test workers.
+torch.set_num_threads(1)
+
 TOL_CHOL = {np.float64: 1e-10, np.float32: 1e-3}
 
 
@@ -107,6 +111,24 @@ def test_plain_ldl_matches_jax_lanes(jax_lanes, n):
     assert int(f.n_neg) == int(np.sum(np.linalg.eigvalsh(M) < 0))
 
 
+@pytest.mark.parametrize("n", [300, 577])
+def test_plain_versions_across_outer_blocks(jax_lanes, n):
+    """Sizes past one outer block (OB = 256 columns), with a ragged last
+    block: the delayed rank-OB updates and the inner updates of the plain
+    versions against jnp.linalg.cholesky and the XLA LDL^T lane."""
+    jnp, jchol, jldl = jax_lanes
+    A = _spd(n, n)
+    L = tchol.cholesky(torch.from_numpy(A)).numpy()
+    Lx = np.asarray(jnp.linalg.cholesky(jnp.asarray(A)))
+    assert np.abs(L - Lx).max() / np.abs(Lx).max() < 1e-10
+    M = _saddle(n, n)
+    f = tldl.ldl_factor(torch.from_numpy(M))
+    fj = jldl._ldl_factor_impl(jnp.asarray(M), use_pallas=False, interpret=False)
+    assert np.abs(f.L.numpy() - np.asarray(fj.L)).max() < 1e-9
+    assert np.abs(f.d.numpy() - np.asarray(fj.d)).max() < 1e-9
+    assert int(f.n_neg) == int(fj.n_neg) and bool(f.ok) == bool(fj.ok)
+
+
 def test_plain_ldl_float32_matches_xla_lane(jax_lanes):
     jnp, jchol, jldl = jax_lanes
     M = _saddle(200, 5).astype(np.float32)
@@ -193,3 +215,14 @@ def test_cuda_ldl_matches_plain(cuda_device, n, dtype, tol):
     assert bool(f.ok) == bool(fp.ok) and int(f.n_neg) == int(fp.n_neg)
     assert float((f.L - Lp).abs().max() / Lp.abs().max()) < tol
     assert float((f.d - dp).abs().max() / dp.abs().max()) < tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_factors_repeat_bitwise(cuda_device, dtype):
+    """No atomics and no split-K: the same input gives the same bits."""
+    A = torch.from_numpy(_spd(600, 2) / 600).to(dtype).to(cuda_device)
+    assert torch.equal(tchol.cholesky(A), tchol.cholesky(A))
+    M = torch.from_numpy(_saddle(600, 2)).to(dtype).to(cuda_device)
+    (L1, d1), (L2, d2) = tldl.ldl_nopiv(M), tldl.ldl_nopiv(M)
+    assert torch.equal(L1, L2) and torch.equal(d1, d2)

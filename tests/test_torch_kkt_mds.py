@@ -21,6 +21,10 @@ from hiop_tpu_torch.examples.acopf_mds import AcopfMds as TorchAcopf
 from hiop_tpu_torch.kkt import mds as tmds
 from hiop_tpu_torch.utils.carry import to_tensor
 
+# The matrices here are small: torch's intra-op thread pool costs more than it
+# gains, and its spinning threads slow the other test workers.
+torch.set_num_threads(1)
+
 RTOL = 1e-10
 DELTAS = dict(delta_wx=1e-3, delta_wd=0.0, delta_cc=1e-8, delta_cd=0.0)
 

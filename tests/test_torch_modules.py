@@ -23,6 +23,10 @@ from hiop_tpu_torch.optimization import residual as tres
 from hiop_tpu_torch.utils import carry
 from hiop_tpu_torch.utils.options import NlpOptions as TorchOptions
 
+# The matrices here are small: torch's intra-op thread pool costs more than it
+# gains, and its spinning threads slow the other test workers.
+torch.set_num_threads(1)
+
 N, MI, MC = 30, 10, 8
 
 

@@ -4,9 +4,10 @@ and the port's package contract.
 Parity: the same problem through ``hiop_tpu`` and ``hiop_tpu_torch`` (both
 f64) gives the same status, the same iteration count, and the objective to
 1e-8 relative. The regularization ladder's decisions are discrete, so a
-different iteration count is a fault, not noise. The JAX run has its
-native sparse LDL^T library switched off: the port has no native tier yet,
-and the JAX package then builds the same safe ladder.
+different iteration count is a fault, not noise. The ACOPF runs here hold
+the dense safe tiers to each other, so both packages have their native
+sparse LDL^T library switched off (no ``schur_sparse_ldl`` tier); with the
+libraries on, ``tests/test_torch_native.py`` holds the native tier.
 """
 
 import os
@@ -19,10 +20,15 @@ import torch
 import examples.acopf_mds as jax_acopf
 import examples.mds_ex1 as jax_ex1
 import hiop_tpu.native.ldl as jax_native_ldl
+import hiop_tpu_torch.native.ldl as torch_native_ldl
 from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpMDS, NlpOptions
 from hiop_tpu_torch.examples import acopf_mds, mds_ex1
 from hiop_tpu_torch.formulation.base import NlpFormulation
 from hiop_tpu_torch.linalg import ldl_blocked
+
+# The matrices here are small: torch's intra-op thread pool costs more than it
+# gains, and its spinning threads slow the other test workers.
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -42,6 +48,7 @@ def test_mds_ex1_matches_jax():
 
 def test_acopf16_ldl_nopiv_matches_jax(monkeypatch):
     monkeypatch.setattr(jax_native_ldl, "native_available", lambda: False)
+    monkeypatch.setattr(torch_native_ldl, "native_available", lambda: False)
     opts = dict(verbosity_level=0, linear_solver_dense="ldl_nopiv")
     rj = jax_acopf.solve(16, **opts)
 
@@ -63,6 +70,7 @@ def test_imports_load_neither_jax_nor_hiop_tpu():
     code = (
         "import importlib, pkgutil, sys\n"
         "import hiop_tpu_torch, chip_smoke, chip_measure\n"
+        "import hiop_tpu_torch.native, hiop_tpu_torch.native.ldl\n"
         "for m in pkgutil.walk_packages(hiop_tpu_torch.__path__, 'hiop_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'hiop_tpu')]\n"
@@ -136,6 +144,7 @@ def test_acopf512_card_ladder_first_iterations_match_jax(monkeypatch):
     import hiop_tpu_torch.optimization.filter_ipm as torch_filter_ipm
 
     monkeypatch.setattr(jax_native_ldl, "native_available", lambda: False)
+    monkeypatch.setattr(torch_native_ldl, "native_available", lambda: False)
     monkeypatch.setattr(jax_execspace, "on_accelerator", lambda *a: True)
     monkeypatch.setattr(torch_filter_ipm, "on_accelerator", lambda *a: True)
     tiers = {"jax": [], "torch": []}
