@@ -18,7 +18,16 @@ JSON object per line:
   calls and seconds of its host ``lu_eig`` factorizations;
 - ``profile``: the capped main-path run under ``torch.profiler``: the
   device's busy time (summed kernel durations), its idle share of the
-  wall, and the kernels that take the most device time.
+  wall, and the kernels that take the most device time;
+- ``mp``: ACOPF B=512 with ``kkt_fact_dtype=float32`` toward convergence,
+  stopped at ``MP_MAX_ITER`` iterations or after ``MP_WALL_S`` seconds
+  (status User_Stopped), whichever comes first: the factorization slot
+  and dtype that started each iteration, s/iter by slot, the f32
+  fraction, the demotions of f32 with the iteration of each, the inner
+  FGMRES iterations and the kernel ms by kernel and dtype.
+
+``python3 chip_measure.py RUN ...`` runs only the named runs (default:
+all, in the order above).
 
 Every timed solve ends in ``torch.cuda.synchronize()``; kernel times are
 summed CUDA events around each launch. Imports nothing of JAX or of
@@ -47,6 +56,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 #: 12 on the host lu_eig tier (chip_smoke.B512_MAX_ITER), which costs
 #: seconds per iteration at 4710^2: 16 iterations measure every tier
 LADDER_MAX_ITER = 16
+
+#: ACOPF B=512 mixed-precision run: iteration cap and wall budget. The
+#: host lu_eig tier costs 6-9 s per iteration at 4710^2, so the budget,
+#: not the cap, ends a run that reaches it and stays there
+MP_MAX_ITER = 400
+MP_WALL_S = 900.0
 
 
 def _part(name: str) -> str:
@@ -110,7 +125,10 @@ def breakdown(root: str) -> dict:
 
 def _tier_timeline(torch, fipm):
     """Patch the MDS strategy so that each iteration's start time and the
-    tier of its first factorization are recorded; returns (log, undo)."""
+    slot and dtype of its first factorization (``chip_smoke.fact_label``)
+    are recorded; returns (log, undo)."""
+    from chip_smoke import fact_label
+
     log = []
     prepare, factorize = fipm._MdsStrategy.prepare, fipm._MdsStrategy._factorize
 
@@ -121,7 +139,7 @@ def _tier_timeline(torch, fipm):
 
     def tagged_factorize(self):
         if log and log[-1][1] is None:
-            log[-1][1] = self._safe_tiers[self._safe_mode - 1] if self._safe_mode else "quick"
+            log[-1][1] = fact_label(self, torch.float32)
         return factorize(self)
 
     fipm._MdsStrategy.prepare, fipm._MdsStrategy._factorize = timed_prepare, tagged_factorize
@@ -154,6 +172,78 @@ def _solve(torch, K, acopf_mds, **opts):
                 sizes={f"{k[0]}:{k[1]}:{k[2]}": v for k, v in K.stats.sizes.items()})
 
 
+def _by_tier(log, t_end) -> dict:
+    tiers: dict = {}
+    for i, (t0, tier) in enumerate(log):
+        t1 = log[i + 1][0] if i + 1 < len(log) else t_end
+        n, s = tiers.get(tier, (0, 0.0))
+        tiers[tier] = (n + 1, s + (t1 - t0))
+    return {t: {"iterations": n, "wall_s": s, "s_per_iter": s / n} for t, (n, s) in tiers.items()}
+
+
+def mp_run(torch, K, acopf_mds) -> dict:
+    """ACOPF B=512 with kkt_fact_dtype=float32 until it converges, stops,
+    reaches MP_MAX_ITER or spends MP_WALL_S (see the module docstring)."""
+    from hiop_tpu_torch import FilterIPMNewton, NlpMDS
+    from hiop_tpu_torch.linalg import krylov
+    from hiop_tpu_torch.optimization import filter_ipm
+
+    deadline = [0.0]
+
+    class Budgeted(acopf_mds.AcopfMds):
+        def iterate_callback(self, info) -> bool:
+            return time.perf_counter() < deadline[0]
+
+    log, undo = _tier_timeline(torch, filter_ipm)
+    demotions, ir_inner = [], [0]
+    demote, fgmres = filter_ipm._mp_demote, krylov.fgmres
+
+    def demoted(strategy, why):
+        if strategy._mp_f32_ok:
+            demotions.append({"iteration": len(log) - 1, "why": why})
+        return demote(strategy, why)
+
+    def counted(*a, **k):
+        x, info = fgmres(*a, **k)
+        ir_inner[0] += info.iters
+        return x, info
+
+    filter_ipm._mp_demote, krylov.fgmres = demoted, counted
+    nlp = NlpMDS(Budgeted(512), acopf_mds.acopf_options(
+        verbosity_level=0, kkt_fact_dtype="float32", max_iter=MP_MAX_ITER))
+    torch.cuda.synchronize()
+    K.stats.reset()
+    K.stats.timing = True
+    t0 = time.perf_counter()
+    deadline[0] = t0 + MP_WALL_S
+    try:
+        r = FilterIPMNewton(nlp).run()
+        out = dict(status=r.status.name, iterations=r.iterations, obj=r.obj)
+    except NotImplementedError as e:
+        out = dict(status=f"NotImplementedError: {e}", iterations=len(log) - 1)
+    finally:
+        undo()
+        filter_ipm._mp_demote, krylov.fgmres = demote, fgmres
+    torch.cuda.synchronize()
+    t_end = time.perf_counter()
+    kms = K.stats.device_ms(by_dtype=True)
+    K.stats.timing = False
+    kkt = nlp.runstats.kkt
+    its = out["iterations"]
+    return dict(
+        out, max_iter=MP_MAX_ITER, wall_budget_s=MP_WALL_S, wall_s=t_end - t0,
+        s_per_iter=(t_end - t0) / its if its else None,
+        n_fact_total=kkt.n_fact_total, n_fact_f32=kkt.n_fact_f32,
+        f32_fraction=kkt.n_fact_f32 / max(kkt.n_fact_total, 1),
+        demotions=demotions, ir_inner_iterations=ir_inner[0],
+        tier_by_iteration=[t for _, t in log], tiers=_by_tier(log, t_end),
+        kernel_ms={f"{k}:{d}": v for (k, d), v in kms.items()},
+        sizes={f"{k[0]}:{k[1]}:{k[2]}": v for k, v in K.stats.sizes.items()})
+
+
+RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp")
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--breakdown":
         import torch
@@ -173,36 +263,46 @@ def main() -> int:
         print("chip_measure: no CUDA device is visible", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
-    from chip_smoke import B512_MAX_ITER, _nvidia_smi
+    from chip_smoke import _nvidia_smi
     from hiop_tpu_torch.examples import acopf_mds
     from hiop_tpu_torch.linalg import kernels as K
 
+    runs = [a for a in sys.argv[1:] if a in RUNS] or list(RUNS)
     card = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": _nvidia_smi()}
     K.load()
 
     from hiop_tpu_torch.optimization import filter_ipm
 
-    log, undo = _tier_timeline(torch, filter_ipm)
-    try:
-        run = _solve(torch, K, acopf_mds, linear_solver_dense="auto", max_iter=LADDER_MAX_ITER)
-    finally:
-        undo()
-    t_end = time.perf_counter()
-    tiers: dict = {}
-    for i, (t0, tier) in enumerate(log):
-        t1 = log[i + 1][0] if i + 1 < len(log) else t_end
-        n, s = tiers.get(tier, (0, 0.0))
-        tiers[tier] = (n + 1, s + (t1 - t0))
-    print(json.dumps({"ladder": dict(
-        run, max_iter=LADDER_MAX_ITER, tier_by_iteration=[t for _, t in log],
-        tiers={t: {"iterations": n, "wall_s": s, "s_per_iter": s / n} for t, (n, s) in tiers.items()}),
-        "card": card}), flush=True)
+    if "ladder" in runs:
+        log, undo = _tier_timeline(torch, filter_ipm)
+        try:
+            run = _solve(torch, K, acopf_mds, linear_solver_dense="auto", max_iter=LADDER_MAX_ITER)
+        finally:
+            undo()
+        print(json.dumps({"ladder": dict(
+            run, max_iter=LADDER_MAX_ITER, tier_by_iteration=[t for _, t in log],
+            tiers=_by_tier(log, time.perf_counter())), "card": card}), flush=True)
+    if "ldl_only" in runs:
+        ldl_only(torch, K, acopf_mds, card)
+    if "host_lu_eig" in runs:
+        host_lu_eig(np, sla, card)
+    if "b32_host_tier" in runs:
+        b32_host_tier(torch, acopf_mds, card)
+    if "profile" in runs:
+        profile_run(torch, K, acopf_mds, card)
+    if "mp" in runs:
+        print(json.dumps({"mp": mp_run(torch, K, acopf_mds), "card": card}), flush=True)
+    return 0
 
+
+def ldl_only(torch, K, acopf_mds, card) -> None:
     twice = [_solve(torch, K, acopf_mds, linear_solver_dense="ldl_nopiv") for _ in range(2)]
     same = all(twice[0].get(k) == twice[1].get(k) for k in ("status", "iterations", "obj", "launches"))
     print(json.dumps({"ldl_only": twice, "two_runs_identical": same,
                       "saved_obj": acopf_mds.SELFCHECK[512][0], "card": card}), flush=True)
 
+
+def host_lu_eig(np, sla, card) -> None:
     rng = np.random.default_rng(0)
     host = {}
     for n in (294, 4710):
@@ -215,6 +315,8 @@ def main() -> int:
         host[n] = {"lu_factor_s": t1 - t0, "eigvalsh_s": time.perf_counter() - t1}
     print(json.dumps({"host_lu_eig": host, "cpu_count": os.cpu_count(), "card": card}), flush=True)
 
+
+def b32_host_tier(torch, acopf_mds, card) -> None:
     from hiop_tpu_torch.kkt import mds as kkt_mds
 
     lu_eig, calls = kkt_mds._lu_with_inertia, []
@@ -238,6 +340,9 @@ def main() -> int:
         "status": r.status.name, "iterations": r.iterations, "wall_s": wall,
         "lu_eig_calls": len(calls), "lu_eig_s": sum(calls)}, "card": card}), flush=True)
 
+
+def profile_run(torch, K, acopf_mds, card) -> None:
+    from chip_smoke import B512_MAX_ITER
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -255,7 +360,6 @@ def main() -> int:
         "idle_share": 1.0 - busy_ms / (run["wall_s"] * 1e3),
         "top": [{"kernel": k[:90], "launches": n, "ms": us / 1e3} for k, (n, us) in top]},
         "card": card}), flush=True)
-    return 0
 
 
 if __name__ == "__main__":

@@ -27,7 +27,20 @@ the script exits nonzero):
 6. main path at full width, ACOPF B=512 (S is 4608^2, the saddle 4710^2),
    capped at ``B512_MAX_ITER`` iterations: both kernels at those sizes, a
    finite objective, per-iteration times. ``chip_measure.py`` runs the
-   longer B=512 solves.
+   longer B=512 solves;
+7. mixed precision (``kkt_fact_dtype=float32``), ACOPF B=32 to convergence
+   at ``SELFCHECK[32]``: both kernels launch in f32; prints the
+   tier/dtype sequence, the f32 fraction, the demotions, the inner
+   FGMRES iterations and why the first rejected f32 device factorization
+   was rejected;
+8. mixed precision at full width, ACOPF B=512 capped at
+   ``B512_MP_MAX_ITER``: the f32 Cholesky of S (4608^2) and the f32
+   device LDL^T of the saddle (4736^2) launch; s/iter, f32 kernel ms per
+   iteration, peak memory, and the same rejection diagnosis;
+9. the operator-form mixed-precision KKT (``factorize_saddle_device_mp_op``
+   / ``solve_saddle_device_mp_op``) at phase 8's last iterate: the f32
+   LDL^T at 4736^2, a certified direction that agrees with the f64
+   ``factorize_saddle_device`` one to ``OP_FORM_RTOL``.
 
 Each main-path phase sets the launch counts to zero just before the solve
 and reads them just after. The last three lines of standard output are the
@@ -60,6 +73,16 @@ PEAK_BYTES = 3.35e12
 #: hiop_tpu and the port on the CPU). The cap stops inside the device
 #: LDL^T stretch
 B512_MAX_ITER = 10
+
+#: ACOPF B=512 with kkt_fact_dtype=float32: iteration cap. Iterations 0-3
+#: run the quick tier in f32 (the f32 Cholesky of S); at iteration 4 the
+#: f32 device LDL^T of the saddle is tried in the first safe slot, and
+#: rejected, after which the f64 ladder runs (``chip_measure.py mp``)
+B512_MP_MAX_ITER = 10
+
+#: phase 9: the op-form direction against the f64 device saddle's, relative
+#: to each block's largest entry (both certified to ~1e-9 in residual)
+OP_FORM_RTOL = 1e-6
 
 
 def _log(*a) -> None:
@@ -210,6 +233,125 @@ def phase_kernels(torch, dev):
     return rows
 
 
+def phase_mixed_precision(torch, dev) -> dict:
+    """Phases 7-9: the main path with kkt_fact_dtype=float32, and the
+    operator-form mixed-precision KKT at a B=512 iterate."""
+    from hiop_tpu_torch.examples import acopf_mds
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.linalg import krylov
+    from hiop_tpu_torch.optimization import filter_ipm
+
+    _check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+           and torch.get_float32_matmul_precision() == "highest",
+           "TF32 is on: the f32 factorizations and solves must stay IEEE FP32")
+    out = {}
+
+    _log("[7] mixed precision: ACOPF B=32, kkt_fact_dtype=float32, to convergence")
+    with _mp_log(filter_ipm, krylov) as log:
+        r, wall, _, sizes = _solve_phase(
+            torch, "acopf B=32 f32",
+            lambda: acopf_mds.solve(32, verbosity_level=0, kkt_fact_dtype="float32"),
+            {"cholesky": "quick tier in f32", "ldl_nopiv": "f32 device safe tier"})
+    n_f32 = sum(1 for t in log["fact"] if "f32" in t)
+    _log(f"  acopf B=32 f32: factorizations in order: {_runs(log['fact'])}")
+    _log(f"  acopf B=32 f32: {n_f32} of {len(log['fact'])} factorizations in f32 "
+         f"({n_f32 / max(len(log['fact']), 1):.3f}); demotions {log['demotions']}; "
+         f"inner FGMRES iterations {log['ir_inner']}; {wall / max(r.iterations, 1):.4f} s/iter")
+    for k in ("cholesky", "ldl_nopiv"):
+        _check(any(key.startswith(k + ":") and key.endswith(":float32") for key in sizes),
+               f"acopf B=32 f32: no f32 launch of {k}")
+    ref, tol = acopf_mds.SELFCHECK[32]
+    _log(f"  acopf B=32 f32: first rejected f32 device factorization: "
+         f"{_why_rejected(torch, kkt_mds, log['rejected'])}")
+    _check(r.status.is_success, f"acopf B=32 f32: status {r.status.name}")
+    _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)), f"acopf B=32 f32: obj {r.obj!r} vs saved {ref!r}")
+
+    _log(f"[8] mixed precision at full width: ACOPF B=512, kkt_fact_dtype=float32, "
+         f"capped at max_iter={B512_MP_MAX_ITER}")
+    torch.cuda.reset_peak_memory_stats()
+    K.stats.timing = True
+    with _mp_log(filter_ipm, krylov) as log:
+        r, wall, launches, sizes = _solve_phase(
+            torch, "acopf B=512 f32",
+            lambda: acopf_mds.solve(512, verbosity_level=0, kkt_fact_dtype="float32",
+                                    max_iter=B512_MP_MAX_ITER),
+            {"cholesky": "quick tier in f32", "ldl_nopiv": "f32 device safe tier"})
+    kms = K.stats.device_ms(by_dtype=True)
+    K.stats.timing = False
+    its = max(r.iterations, 1)
+    for key in ("cholesky:4608:float32", "ldl_nopiv:4736:float32"):
+        _check(sizes.get(key, 0) > 0, f"acopf B=512 f32: no launch {key}")
+    _check(r.obj == r.obj and abs(r.obj) < float("inf"), f"acopf B=512 f32: objective {r.obj!r}")
+    n_f32 = sum(1 for t in log["fact"] if "f32" in t)
+    out["launches_f32"] = {k: sum(v for key, v in sizes.items() if key.startswith(k + ":")
+                                  and key.endswith(":float32")) for k in ("cholesky", "ldl_nopiv")}
+    out["f32_ms_per_iter"] = {k: kms.get((k, "float32"), 0.0) / its for k in ("cholesky", "ldl_nopiv")}
+    _log(f"  acopf B=512 f32: {r.status.name} after {r.iterations} iterations, {wall / its:.4f} s/iter; "
+         f"factorizations in order: {_runs(log['fact'])}; {n_f32} of {len(log['fact'])} in f32; "
+         f"demotions {log['demotions']}; inner FGMRES iterations {log['ir_inner']}; f32 kernel ms/iter "
+         f"cholesky {out['f32_ms_per_iter']['cholesky']:.3f} ldl_nopiv "
+         f"{out['f32_ms_per_iter']['ldl_nopiv']:.3f} (f64: cholesky "
+         f"{kms.get(('cholesky', 'float64'), 0.0) / its:.3f} ldl_nopiv "
+         f"{kms.get(('ldl_nopiv', 'float64'), 0.0) / its:.3f}); obj {r.obj!r}; max_memory_allocated "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    _log(f"  acopf B=512 f32: first rejected f32 device factorization: "
+         f"{_why_rejected(torch, kkt_mds, log['rejected'])}")
+    log["rejected"] = None
+
+    _log("[9] operator-form mixed-precision KKT at the last B=512 iterate of phase 8")
+    st = log["strategy"]
+    d, p = st._data, st.perturb
+    deltas = (p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd)
+    js_rows, js_cols, pairs = kkt_mds.mds_js_struct(st.nlp)
+    g = torch.Generator().manual_seed(9)
+    rhs = tuple(torch.randn(k, generator=g, dtype=torch.float64).to(dev) for k in (
+        st.ns, d["Hdd"].shape[0], d["Dd"].shape[0], d["Jc_d"].shape[0], d["Dd"].shape[0]))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.synchronize()
+    K.stats.reset()
+    f_op, fact_ms = timed(lambda: kkt_mds.factorize_saddle_device_mp_op(
+        d["hss"], d["Hdd"], d["Dxs"], d["Dxd"], d["Dd"], d["Jc_d"], d["Jd_d"],
+        d["js_vals"], pairs, *deltas))
+    op, solve_ms = timed(lambda: kkt_mds.solve_saddle_device_mp_op(f_op, js_rows, js_cols, *rhs))
+    torch.cuda.synchronize()
+    op_sizes = dict(K.stats.sizes)
+    _, fact_ms_2 = timed(lambda: kkt_mds.factorize_saddle_device_mp_op(
+        d["hss"], d["Hdd"], d["Dxs"], d["Dxd"], d["Dd"], d["Jc_d"], d["Jd_d"],
+        d["js_vals"], pairs, *deltas))
+    _, solve_ms_2 = timed(lambda: kkt_mds.solve_saddle_device_mp_op(f_op, js_rows, js_cols, *rhs))
+    _check(op_sizes.get(("ldl_nopiv", 4736, "float32"), 0) > 0,
+           "op-form: the f32 LDL^T of the 4710 saddle did not launch")
+    f64, f64_fact_ms = timed(lambda: kkt_mds.factorize_saddle_device(
+        d["hss"], d["Hdd"], d["Dxs"], d["Dxd"], d["Dd"], d["Jc_s"], d["Jc_d"], d["Jd_s"], d["Jd_d"],
+        *deltas))
+    ref, f64_solve_ms = timed(lambda: kkt_mds.solve_saddle_device(f64, *rhs))
+    _, f64_fact_ms_2 = timed(lambda: kkt_mds.factorize_saddle_device(
+        d["hss"], d["Hdd"], d["Dxs"], d["Dxd"], d["Dd"], d["Jc_s"], d["Jc_d"], d["Jd_s"], d["Jd_d"],
+        *deltas))
+    _, f64_solve_ms_2 = timed(lambda: kkt_mds.solve_saddle_device(f64, *rhs))
+    errs = [float((a - b).abs().max() / b.abs().max().clamp(min=1e-300)) if b.numel() else 0.0
+            for a, b in zip(op[:5], ref)]
+    mc_md = d["Jc_d"].shape[0] + d["Jd_d"].shape[0]
+    _log(f"  op-form: ok {bool(f_op.ok)} (n_neg {int(f_op.n_neg)}, mc+md {mc_md}); certified {op[5]} "
+         f"after n_ir {op[6]}; factorization {fact_ms:.3f} ms (again {fact_ms_2:.3f}), solve "
+         f"{solve_ms:.3f} ms (again {solve_ms_2:.3f}); f64 device saddle: ok {bool(f64.ok)}, "
+         f"factorization {f64_fact_ms:.3f} ms (again {f64_fact_ms_2:.3f}), solve {f64_solve_ms:.3f} ms "
+         f"(again {f64_solve_ms_2:.3f}); "
+         f"direction rel diff by block (dxs, dxd, dd, dyc, dyd) {['%.2e' % e for e in errs]} "
+         f"(tolerance {OP_FORM_RTOL:g})")
+    _check(op[5], "op-form: the f32 direction was not certified")
+    _check(max(errs) <= OP_FORM_RTOL, f"op-form: direction differs from the f64 one by {max(errs):.3e}")
+    return out
+
+
 @contextlib.contextmanager
 def _tier_log(kkt_mds):
     """Record the safe tier of every safe-tier factorization in order."""
@@ -229,6 +371,105 @@ def _tier_log(kkt_mds):
         yield log
     finally:
         kkt_mds.factorize_safe, kkt_mds.factorize_safe_schur = dense, bordered
+
+
+def fact_label(strategy, f32) -> str:
+    """The slot and dtype of an MDS strategy's next factorization
+    (``f32``: the package's float32 dtype): ``quick-f32``, ``lu_eig-f64``,
+    or ``device-f32[schur_sparse_ldl]`` for the f32 device LDL^T that
+    stands in a safe tier's slot."""
+    slot = strategy._safe_tiers[strategy._safe_mode - 1] if strategy._safe_mode else "quick"
+    if strategy.fact_dtype != f32:
+        return slot + "-f64"
+    return f"device-f32[{slot}]" if strategy._safe_mode else "quick-f32"
+
+
+@contextlib.contextmanager
+def _mp_log(filter_ipm, krylov):
+    """Record, in order, each factorization's (slot, dtype) as
+    ``quick-f32``, ``schur_sparse_ldl-f64``, ``device-f32[lu_eig]`` (the f32
+    device LDL^T in that safe tier's slot) ..., each demotion of f32, the
+    inner FGMRES iterations, the last strategy that prepared a KKT, and the
+    arguments and factors of the first f32 device factorization that was
+    not ``ok`` (for :func:`_why_rejected`)."""
+    import torch
+
+    log = {"fact": [], "demotions": [], "ir_inner": 0, "strategy": None, "rejected": None}
+    S = filter_ipm._MdsStrategy
+    factorize, prepare, demote, fgmres = S._factorize, S.prepare, filter_ipm._mp_demote, krylov.fgmres
+    safe = filter_ipm.kkt_mds.factorize_safe
+
+    def kept_safe(*a, **k):
+        f = safe(*a, **k)
+        if a[1].dtype == torch.float32 and not f.ok and log["rejected"] is None:
+            log["rejected"] = (a, k, f)
+        return f
+
+    def tagged(self):
+        log["fact"].append(fact_label(self, torch.float32))
+        return factorize(self)
+
+    def kept(self, *a, **k):
+        log["strategy"] = self
+        return prepare(self, *a, **k)
+
+    def demoted(strategy, why):
+        if strategy._mp_f32_ok:
+            log["demotions"].append(why)
+        return demote(strategy, why)
+
+    def counted(*a, **k):
+        x, info = fgmres(*a, **k)
+        log["ir_inner"] += info.iters
+        return x, info
+
+    S._factorize, S.prepare, filter_ipm._mp_demote, krylov.fgmres = tagged, kept, demoted, counted
+    filter_ipm.kkt_mds.factorize_safe = kept_safe
+    try:
+        yield log
+    finally:
+        S._factorize, S.prepare, filter_ipm._mp_demote, krylov.fgmres = factorize, prepare, demote, fgmres
+        filter_ipm.kkt_mds.factorize_safe = safe
+
+
+def _why_rejected(torch, kkt_mds, rejected) -> str:
+    """Which part of a rejected f32 device factorization's ``ok`` failed
+    (a null K_s entry, a non-finite factor, pivots at or below
+    eps_f32 * max(|M|, 1) * 1e-2), and whether the equilibrated op-form f32
+    factorization of the same operands is finite and free of breakdown (the
+    f32 safe tier's acceptance, which does not count the inertia). Runs
+    after a phase's launch counts are read."""
+    if rejected is None:
+        return "no f32 device factorization was rejected"
+    a, k, f = rejected
+    if f.fact is None:
+        return "a null entry of the eliminated diagonal K_s"
+    M = kkt_mds._dense_saddle(*a[:13], k.get("js_vals"), k.get("js_pairs"))[-1]
+    lf = f.fact
+    m_max = float(M.abs().max())
+    thresh = torch.finfo(M.dtype).eps * max(m_max, 1.0) * 1e-2
+    d = lf.d[: lf.n]
+    finite = bool(torch.isfinite(lf.L).all()) and bool(torch.isfinite(lf.d).all())
+    up = [x.to(torch.float64) for x in a[:9]]
+    op = kkt_mds.factorize_saddle_device_mp_op(
+        up[0], up[1], up[2], up[3], up[4], up[6], up[8], k["js_vals"].to(torch.float64),
+        k["js_pairs"], *a[9:13], count_inertia=False)
+    return (f"saddle {lf.n}: finite factor {finite}; max|M| {m_max:.3e}, breakdown threshold "
+            f"{thresh:.3e}, min |pivot| {float(d.abs().min()):.3e}, pivots at or below it "
+            f"{int((d.abs() <= thresh).sum())}; equilibrated op-form f32 factorization of the same "
+            f"operands: finite without breakdown {bool(op.ok)}, n_neg {int(op.n_neg)} "
+            f"(m = {M.shape[0] - a[1].shape[0]})")
+
+
+def _runs(seq) -> str:
+    """``a x3, b x1, a x2`` for the sequence a a a b a a."""
+    out = []
+    for t in seq:
+        if out and out[-1][0] == t:
+            out[-1][1] += 1
+        else:
+            out.append([t, 1])
+    return ", ".join(f"{t} x{k}" for t, k in out)
 
 
 def _solve_phase(torch, name: str, run, need: dict):
@@ -308,13 +549,7 @@ def main() -> int:
             torch, "acopf B=32",
             lambda: acopf_mds.solve(32, verbosity_level=0, linear_solver_dense="auto"),
             {"cholesky": "quick tier", "ldl_nopiv": "device safe tier"})
-    runs = []
-    for t in tiers:
-        if runs and runs[-1][0] == t:
-            runs[-1][1] += 1
-        else:
-            runs.append([t, 1])
-    _log("  acopf B=32 safe tiers in order: " + ", ".join(f"{t} x{k}" for t, k in runs))
+    _log("  acopf B=32 safe tiers in order: " + _runs(tiers))
     _check("schur_sparse_ldl" in tiers, "acopf B=32: no schur_sparse_ldl factorization")
     ref, tol = acopf_mds.SELFCHECK[32]
     _check(r.status.is_success, f"acopf B=32: status {r.status.name}")
@@ -346,19 +581,26 @@ def main() -> int:
         _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)),
                f"acopf B=512 converged to obj {r.obj!r}, saved {ref!r}")
 
+    mp = phase_mixed_precision(torch, dev)
+
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
     main_n = {"cholesky": 4608, "ldl_nopiv": 4736}
     kernels = []
-    for name, (source, replaces) in src.items():
-        head = next(x for x in rows[name] if x["n"] == main_n[name] and x["dtype"] == "float64")
-        kernels.append(dict(
-            name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches.get(name, 0), max_abs_err=head["max_abs_err"],
-            ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
-            bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
-            n=head["n"], dtype="float64", ms_per_iter_b512=kms.get(name, 0.0) / its,
-            shapes=rows[name]))
+    for dname, suffix in (("float64", ""), ("float32", "_f32")):
+        for name, (source, replaces) in src.items():
+            head = next(x for x in rows[name] if x["n"] == main_n[name] and x["dtype"] == dname)
+            if dname == "float64":
+                n_launch, per_iter = launches.get(name, 0), kms.get(name, 0.0) / its
+            else:
+                n_launch, per_iter = mp["launches_f32"].get(name, 0), mp["f32_ms_per_iter"].get(name, 0.0)
+            kernels.append(dict(
+                name=name + suffix, route="cuda", source=source, replaces=replaces,
+                launches=n_launch, max_abs_err=head["max_abs_err"],
+                ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
+                n=head["n"], dtype=dname, ms_per_iter_b512=per_iter,
+                shapes=[x for x in rows[name] if x["dtype"] == dname]))
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -2,8 +2,9 @@
 
 It mirrors ``hiop_tpu``'s module layout file for file. ``hiop_tpu`` (JAX)
 is the reference each ported module is tested against; this package never
-imports it or JAX. The first slice covers the Newton filter line-search
-IPM on mixed dense-sparse (MDS) problems through the general loop in f64,
+imports it or JAX. The port covers the Newton filter line-search IPM on
+mixed dense-sparse (MDS) problems through the general loop, in f64 and in
+mixed precision (``kkt_fact_dtype=float32`` with f64 FGMRES refinement),
 with hand-written CUDA kernels for the blocked Cholesky (quick tier) and
 the blocked no-pivot LDL^T (inertia-revealing safe tier).
 

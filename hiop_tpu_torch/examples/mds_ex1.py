@@ -15,7 +15,8 @@ Self-check (NlpMdsEx1Driver.cpp:149): ns=400, nd=100 ->
   obj = -4.9994906229741609e+01 (abs tol 1e-6).
 
 Run: ``python -m hiop_tpu_torch.examples.mds_ex1 400 100 -selfcheck``
-(on cuda:0; add ``-cpu`` for the CPU).
+(on cuda:0; add ``-cpu`` for the CPU, ``-pallas`` for mixed precision:
+``kkt_fact_dtype=float32``).
 """
 
 from __future__ import annotations
@@ -153,6 +154,11 @@ def main(argv=None):
     ns = int(pos[0]) if pos else 400
     nd = int(pos[1]) if len(pos) > 1 else 100
     extra = dict(compute_mode="cpu") if "-cpu" in argv else {}
+    if "-pallas" in argv:
+        # mixed precision: the f32 factorizations through the hand-written
+        # kernels (the role of HiOp's RAJA/GPU example NlpMdsRajaEx1); the
+        # flag keeps the name it has in the JAX example, whose kernels were Pallas
+        extra["kkt_fact_dtype"] = "float32"
     r = solve(ns, nd, **extra)
     print(f"Objective: {r.obj:.12e} status {r.status.name} iters {r.iterations}")
     if "-selfcheck" in argv:

@@ -59,7 +59,7 @@ class KernelStats:
         self.launches: Counter = Counter()   # name -> launches
         self.sizes: Counter = Counter()      # (name, n, dtype) -> launches
         self.timing = False
-        self.events: list = []               # (name, n, start, end) when timing
+        self.events: list = []               # (name, n, dtype, start, end) when timing
 
     def reset(self) -> None:
         self.launches.clear()
@@ -76,24 +76,26 @@ class KernelStats:
         return ev
 
     def count(self, name: str, n: int, dtype, start) -> None:
+        dname = str(dtype).replace("torch.", "")
         self.launches[name] += 1
-        self.sizes[(name, n, str(dtype).replace("torch.", ""))] += 1
+        self.sizes[(name, n, dname)] += 1
         if start is not None:
             import torch
 
             end = torch.cuda.Event(enable_timing=True)
             end.record()
-            self.events.append((name, n, start, end))
+            self.events.append((name, n, dname, start, end))
 
-    def device_ms(self) -> dict:
-        """Summed kernel milliseconds by name over the recorded launches
-        (synchronizes)."""
+    def device_ms(self, by_dtype: bool = False) -> dict:
+        """Summed kernel milliseconds over the recorded launches, by name,
+        or by (name, dtype) (synchronizes)."""
         import torch
 
         torch.cuda.synchronize()
         out: dict = {}
-        for name, _, s, e in self.events:
-            out[name] = out.get(name, 0.0) + s.elapsed_time(e)
+        for name, _, dname, s, e in self.events:
+            key = (name, dname) if by_dtype else name
+            out[key] = out.get(key, 0.0) + s.elapsed_time(e)
         return out
 
 

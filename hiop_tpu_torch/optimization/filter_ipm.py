@@ -13,12 +13,16 @@ errors/termination -> mu update loop -> KKT update -> search direction ->
 fraction-to-boundary -> backtracking filter line search (with SOC) -> dual
 update -> re-evals }.
 
-This slice ports the general loop (``jit_mode=kernels``) in f64 with the
-MDS strategy: the quick Cholesky tier and the safe ladder (the native
-bordered sparse LDL^T on the host, device no-pivot LDL^T, host LU + eigen
-inertia). Options and paths that need modules not
-ported yet raise :class:`NotImplementedError` naming the ROADMAP.md item
-that will port them.
+The port covers the general loop (``jit_mode=kernels``) with the MDS
+strategy: the quick Cholesky tier and the safe ladder (the native bordered
+sparse LDL^T on the host, device no-pivot LDL^T, host LU + eigen inertia),
+in f64 or with ``kkt_fact_dtype=float32``: f32 factorizations through the
+same kernels, each solve certified by f64 FGMRES refinement
+(:mod:`hiop_tpu_torch.linalg.krylov`) under the ``mp_schedule`` policy, and
+on the card an f32 device LDL^T in place of every safe tier until the
+first rejection or failed certification demotes f32. Options and paths
+that need modules not ported yet raise :class:`NotImplementedError` naming
+the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from hiop_tpu_torch.backends.execspace import on_accelerator, resolve_device
 from hiop_tpu_torch.formulation.base import NlpFormulation, to_numpy
 from hiop_tpu_torch.interface.base import IterateCallbackInfo
 from hiop_tpu_torch.kkt import mds as kkt_mds
+from hiop_tpu_torch.linalg import krylov
 from hiop_tpu_torch.native import ldl as native_ldl
 from hiop_tpu_torch.optimization import duals_update as du
 from hiop_tpu_torch.optimization import iterate as it_mod
@@ -72,7 +77,6 @@ def _not_ported(what: str, item: str):
 #: options whose non-default values need code this slice does not port
 _UNPORTED_OPTIONS = (
     ("jit_mode", ("iteration", "solve"), "jit_mode=iteration/solve", "item 13: fused modes"),
-    ("kkt_fact_dtype", ("float32",), "kkt_fact_dtype=float32", "item 8: mixed precision"),
     ("elastic_mode", ("tighten_bound", "correct_it", "correct_it_adjust_bound"),
      "elastic_mode", "item 12: robustness"),
     ("checkpoint_save", ("yes",), "checkpointing", "item 12: utils/checkpoint.py"),
@@ -118,24 +122,82 @@ def _maybe_escalate_chronic(strategy, can_escalate: bool) -> None:
         )
 
 
+def _mds_matvec(hss, Dxs, Dxd, Dd, Hdd, Jc_s, Jc_d, Jd_s, Jd_d,
+                dwx, dwd, dcc, dcd, ns, dx, dd, dyc, dyd):
+    """f64 compressed XDYcYd operator with the block MDS Hessian; dx
+    carries [dxs; dxd]."""
+    dxs, dxd = dx[:ns], dx[ns:]
+    ax_s = (hss + Dxs + dwx) * dxs + Jc_s.T @ dyc + Jd_s.T @ dyd
+    ax_d = Hdd @ dxd + (Dxd + dwx) * dxd + Jc_d.T @ dyc + Jd_d.T @ dyd
+    ad = (Dd + dwd) * dd - dyd
+    ayc = Jc_s @ dxs + Jc_d @ dxd - dcc * dyc
+    ayd = Jd_s @ dxs + Jd_d @ dxd - dd - dcd * dyd
+    return torch.cat([ax_s, ax_d]), ad, ayc, ayd
+
+
 def _mp_init(strategy, o) -> None:
-    """The part of the mixed-precision schedule state that the f64 path
-    reads (the de-escalation bookkeeping); the f32 tiers wait for ROADMAP
-    item 8."""
+    """Attach the mixed-precision schedule state: the IR-residual-driven
+    policy (``mp_schedule=adaptive``) or the fixed mu cutover
+    (``mu_threshold``), and the de-escalation bookkeeping."""
+    strategy._mp_schedule = o.str_("mp_schedule")
+    strategy._mp_mu_threshold = o.num("mp_mu_threshold")
+    strategy._mp_f32_ok = True
     strategy._deesc_n = o.integer("mp_deescalate_iters")
     strategy._deesc_clean = 0
     strategy._deesc_budget = 2  # flip-flop guard: at most 2 per solve
 
 
+def _mp_fact_dtype(strategy):
+    """Effective factorization dtype. In safe mode f64, unless the solve
+    runs on the card (``_mp_safe_f32_device``): there the f32 device LDL^T,
+    certified by the f64 residual and the inner IR, replaces the safe tier
+    until the first rejection or failed certification demotes it. Outside
+    safe mode 'adaptive' stays f32 until the f64 refinement stops
+    certifying the solve, and 'mu_threshold' uses the fixed cutover (cf.
+    ReSolve/IterativeRefinement.hpp:25, made adaptive)."""
+    if strategy._fact_dtype_opt == torch.float64:
+        return torch.float64
+    if strategy._safe_mode:
+        probe = getattr(strategy, "_mp_safe_f32_device", None)
+        if (
+            strategy._mp_schedule == "adaptive"
+            and strategy._mp_f32_ok
+            and probe is not None
+            and probe()
+        ):
+            return torch.float32
+        return torch.float64
+    if strategy._mp_schedule == "mu_threshold":
+        return (
+            torch.float32
+            if strategy._mu >= strategy._mp_mu_threshold
+            else torch.float64
+        )
+    return torch.float32 if strategy._mp_f32_ok else torch.float64
+
+
+def _mp_demote(strategy, why: str) -> None:
+    if strategy._mp_f32_ok:
+        strategy._mp_f32_ok = False
+        strategy.log.printf(
+            Verbosity.SCALARS,
+            "mixed precision: demoting KKT factorization to f64 (%s)", why,
+        )
+
+
 def _mp_count_fact(strategy) -> None:
-    strategy.stats.kkt.n_fact_total += 1
+    k = strategy.stats.kkt
+    k.n_fact_total += 1
+    if strategy.fact_dtype == torch.float32:
+        k.n_fact_f32 += 1
 
 
 def _maybe_deescalate_safe(strategy) -> None:
     """switch_to_fast_KKT analogue (hiopAlgFilterIPM.hpp:468): after N
     consecutive clean safe-mode iterations (zero regularization, zero
-    corrections) step back one tier toward the quick path. Called from
-    prepare() while the previous iteration's deltas are live."""
+    corrections) step back one tier toward the quick path and give f32
+    another chance. Called from prepare() while the previous iteration's
+    deltas are live."""
     if not strategy._safe_mode or strategy._deesc_budget <= 0:
         strategy._deesc_clean = 0
         return
@@ -151,6 +213,8 @@ def _maybe_deescalate_safe(strategy) -> None:
         strategy._deesc_clean = 0
         strategy._deesc_budget -= 1
         strategy._chronic_delta = 0
+        if getattr(strategy, "_mp_schedule", "") == "adaptive":
+            strategy._mp_f32_ok = True
         strategy.log.printf(
             Verbosity.SCALARS,
             "KKT: %d clean safe-mode iterations; de-escalating to %s",
@@ -186,7 +250,10 @@ class _MdsStrategy:
     The safe ladder is ``hiop_tpu``'s: the bordered ``schur_sparse_ldl``
     host tier first when the triplet Schur pairs exist and the native
     sparse LDL^T library builds (``native.ldl.native_available()``), then
-    the dense tiers of :func:`_dense_safe_tiers`."""
+    the dense tiers of :func:`_dense_safe_tiers`. With
+    ``kkt_fact_dtype=float32`` the factorization dtype follows
+    :func:`_mp_fact_dtype`, and every f32 solve is refined in f64 by
+    :meth:`_inner_refine_mds`."""
 
     MAX_REFACT = 10
 
@@ -200,6 +267,9 @@ class _MdsStrategy:
         self.inertia_free = o.str_("fact_acceptor") == "inertia_free"
         self.linsol_mode = o.str_("linsol_mode")
         self.ns = nlp.n_sparse
+        self._fact_dtype_opt = (
+            torch.float32 if o.str_("kkt_fact_dtype") == "float32" else torch.float64
+        )
         self._mu = 1.0
         self._data = None
         self._factors = None
@@ -241,8 +311,20 @@ class _MdsStrategy:
             for a in (nlp.jac_sp_in_rows, nlp.jac_sp_in_cols)
         )
 
-    #: the factorization dtype; the f32 tiers wait for ROADMAP item 8
-    fact_dtype = torch.float64
+    @property
+    def fact_dtype(self):
+        """Mixed-precision schedule: see :func:`_mp_fact_dtype`."""
+        return _mp_fact_dtype(self)
+
+    def _mp_safe_f32_device(self) -> bool:
+        """On the card the f32 device LDL^T replaces the safe tiers (the
+        kernel of :mod:`hiop_tpu_torch.linalg.ldl_blocked`); on the CPU the
+        host f64 tiers are both faster and stabler, so never f32 there.
+        Reads the solve's own device."""
+        return on_accelerator(self.nlp.device)
+
+    def _cast(self, a):
+        return a.to(self.fact_dtype) if a.dtype != self.fact_dtype else a
 
     def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
         _maybe_deescalate_safe(self)
@@ -275,13 +357,23 @@ class _MdsStrategy:
         p = self.perturb
         _mp_count_fact(self)
         d = self._data
-        args = (
-            d["hss"], d["Hdd"], d["Dxs"], d["Dxd"], d["Dd"],
-            d["Jc_s"], d["Jc_d"], d["Jd_s"], d["Jd_d"],
-            p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd,
-        )
+        args = tuple(
+            self._cast(d[k]) for k in
+            ("hss", "Hdd", "Dxs", "Dxd", "Dd", "Jc_s", "Jc_d", "Jd_s", "Jd_d")
+        ) + (p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd)
         with self.stats.kkt.tm_update_fact:
             if self._safe_mode:
+                if self.fact_dtype == torch.float32:
+                    # the f32 device safe tier (args already cast): the
+                    # no-pivot LDL^T kernel, curvature-accepted and
+                    # IR-certified downstream; triplet Schur assembly
+                    if self._js_pairs is not None:
+                        return kkt_mds.factorize_safe(
+                            *args, host=False,
+                            js_vals=self._cast(d["js_vals"]),
+                            js_pairs=self._js_pairs,
+                        )
+                    return kkt_mds.factorize_safe(*args, host=False)
                 tier = self._safe_tiers[self._safe_mode - 1]
                 if tier == "schur_sparse_ldl":
                     return kkt_mds.factorize_safe_schur(
@@ -294,12 +386,15 @@ class _MdsStrategy:
                 return kkt_mds.factorize_safe(*args, host=(tier == "lu_eig"))
             if self._js_pairs is not None:
                 return kkt_mds.factorize(
-                    *args, js_vals=d["js_vals"], js_pairs=self._js_pairs,
+                    *args, js_vals=self._cast(d["js_vals"]), js_pairs=self._js_pairs,
                 )
             return kkt_mds.factorize(*args)
 
     def _solve(self, f, rx_t, rd_t, ryc, ryd):
         ns = self.ns
+        mixed = self.fact_dtype != torch.float64
+        if mixed:
+            rx_t, rd_t, ryc, ryd = (self._cast(a) for a in (rx_t, rd_t, ryc, ryd))
         if isinstance(f, kkt_mds.MdsSchurHostFactors):
             solver = kkt_mds.solve_safe_schur
         elif isinstance(f, kkt_mds.MdsSafeFactors):
@@ -307,16 +402,63 @@ class _MdsStrategy:
         else:
             solver = kkt_mds.solve
         dxs, dxd, dd, dyc, dyd = solver(f, rx_t[:ns], rx_t[ns:], rd_t, ryc, ryd)
-        return torch.cat([dxs, dxd]), dd, dyc, dyd
+        out = torch.cat([dxs, dxd]), dd, dyc, dyd
+        if mixed:
+            out = tuple(a.to(torch.float64) for a in out)
+        return out
+
+    def _mds_matvec(self, v):
+        """The f64 compressed XDYcYd operator at the current deltas."""
+        d = self._data
+        p = self.perturb
+        return _mds_matvec(
+            d["hss"], d["Dxs"], d["Dxd"], d["Dd"], d["Hdd"],
+            d["Jc_s"], d["Jc_d"], d["Jd_s"], d["Jd_d"],
+            p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd,
+            self.ns, *v,
+        )
+
+    def _inner_refine_mds(self, f, rhs4, sol4):
+        """FGMRES inner IR of the mixed-precision MDS compressed solve: the
+        f64 block operator as matvec, the f32 factorization as the flexible
+        right preconditioner (the ReSolve pattern,
+        ReSolve/IterativeRefinement.hpp:25). Returns (*refined, certified)."""
+        o = self.nlp.options
+        # certification budget: past ~16 FGMRES iterations (each several
+        # host syncs) the f64 refactorization is the cheaper path
+        maxit = min(o.integer("ir_inner_maxit"), 16)
+        if maxit <= 0:
+            return (*sol4, True)
+        tol = max(o.num("ir_inner_tol"), o.num("ir_inner_tol_factor") * self._mu)
+        refined, info = krylov.fgmres(
+            self._mds_matvec, rhs4,
+            M_inv=lambda v: self._solve(f, v[0], v[1], v[2], v[3]),
+            x0=sol4, tol=tol,
+            restart=o.integer("ir_inner_restart"), maxit=maxit,
+            gs_scheme=o.str_("ir_inner_gs_scheme"),
+        )
+        self.stats.kkt.n_iter_refin_inner += info.iters
+        out = refined if info.converged or info.iters > 0 else sol4
+        return (*out, bool(info.converged))
 
     def compute_direction(self, resid, it: Iterate, b: Bounds):
         rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
         d = self._data
         p = self.perturb
         n_corr = 0
+        mp_retried = False
         for _ in range(self.MAX_REFACT):
             f = self._factorize()
-            if self._safe_mode:
+            safe_f32 = self._safe_mode and self.fact_dtype == torch.float32
+            if safe_f32:
+                # f32 pivot signs flip on near-zero pivots, so the f32 safe
+                # tier takes the quick tier's inertia-free curvature
+                # acceptance and the IR certification instead of exact
+                # pivot counts; a breakdown (n_neg_eig = -1) or a
+                # non-finite factor demotes to the f64 tier
+                acceptable = bool(f.ok) and int(f.n_neg_eig) >= 0
+                singular = False
+            elif self._safe_mode:
                 # inertia-revealing acceptance (hiopFactAcceptorIC)
                 if not bool(f.ok):
                     # fact None = zero eliminated diagonal block (wrong
@@ -335,6 +477,9 @@ class _MdsStrategy:
                 ok, ok_k, ok_s = torch.stack([f.ok, f.ok_k, f.ok_s]).tolist()
                 acceptable = ok
                 singular = ok_k and not ok_s
+            if not acceptable and safe_f32:
+                _mp_demote(self, "f32 safe-tier factorization rejected")
+                continue
             if not acceptable:
                 n_corr += 1
                 self.stats.kkt.n_update_corrections = n_corr
@@ -361,11 +506,23 @@ class _MdsStrategy:
             self._factors = f
             with self.stats.kkt.tm_solve_inner:
                 dx, dd, dyc, dyd = self._solve(f, rx_t, rd_t, ryc, ryd)
+            if self.fact_dtype == torch.float32:
+                dx, dd, dyc, dyd, certified = self._inner_refine_mds(
+                    f, (rx_t, rd_t, ryc, ryd), (dx, dd, dyc, dyd)
+                )
+                if (
+                    self._mp_schedule == "adaptive"
+                    and not certified
+                    and not mp_retried
+                ):
+                    _mp_demote(self, "MDS inner FGMRES-IR did not converge")
+                    mp_retried = True
+                    continue  # refactorize this direction in f64
             # curvature (inertia-free) test over the block Hessian; skipped
             # in safe mode with the inertia acceptor, where the pivot count
             # already certified the curvature
             ns = self.ns
-            if not (self._safe_mode and not self.inertia_free):
+            if safe_f32 or not (self._safe_mode and not self.inertia_free):
                 dxs, dxd = dx[:ns], dx[ns:]
                 dWd, nrmsq = torch.stack([
                     dxs @ ((d["hss"] + d["Dxs"] + p.delta_wx) * dxs)
@@ -375,6 +532,12 @@ class _MdsStrategy:
                     dx @ dx + dd @ dd,
                 ]).tolist()
                 if dWd < nrmsq * self.neg_curv_fact:
+                    if safe_f32 and not mp_retried:
+                        # let the f64 inertia-revealing tier decide whether
+                        # this really needs regularization
+                        _mp_demote(self, "f32 safe-tier curvature test failed")
+                        mp_retried = True
+                        continue
                     n_corr += 1
                     self.stats.kkt.n_update_corrections = n_corr
                     if not p.compute_perturb_wrong_inertia():

@@ -105,7 +105,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 UNPORTED = [
     dict(jit_mode="iteration"),
     dict(jit_mode="solve"),
-    dict(kkt_fact_dtype="float32"),
+    dict(checkpoint_load_on_start="yes"),
     dict(elastic_mode="tighten_bound"),
     dict(checkpoint_save="yes"),
     dict(write_kkt="yes"),
