@@ -24,7 +24,18 @@ JSON object per line:
   (status User_Stopped), whichever comes first: the factorization slot
   and dtype that started each iteration, s/iter by slot, the f32
   fraction, the demotions of f32 with the iteration of each, the inner
-  FGMRES iterations and the kernel ms by kernel and dtype.
+  FGMRES iterations and the kernel ms by kernel and dtype;
+- ``dense``: the dense-constrained path: the quasi-Newton ``dense_ex1`` at
+  n = ``chip_smoke.QN_N`` and the exact-Newton DenseConsEx2 (through
+  ``AutoDiffNlpProblem``) at n = 5000 and 10000 on the quick tier, after
+  the cold and warm times of a fresh process's first Hessian, Cholesky
+  kernel and triangular solve at n = 5000. For each solve: the cold wall
+  (the first at its shapes), iterations, s/iter, kernel ms per iteration,
+  host synchronizations per iteration (``.item()``, ``.tolist()``,
+  ``bool``/``float``/``int`` of a CUDA tensor, ``.cpu()``), the device's
+  busy time under ``torch.profiler`` and its idle share of the unprofiled
+  wall, and for Newton the time and extra memory of one
+  ``torch.func.hessian``. Says whether the path is kernel- or host-bound.
 
 ``python3 chip_measure.py RUN ...`` runs only the named runs (default:
 all, in the order above).
@@ -44,6 +55,7 @@ compare two versions of the kernels on one card.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -241,7 +253,7 @@ def mp_run(torch, K, acopf_mds) -> dict:
         sizes={f"{k[0]}:{k[1]}:{k[2]}": v for k, v in K.stats.sizes.items()})
 
 
-RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp")
+RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp", "dense")
 
 
 def main() -> int:
@@ -292,7 +304,131 @@ def main() -> int:
         profile_run(torch, K, acopf_mds, card)
     if "mp" in runs:
         print(json.dumps({"mp": mp_run(torch, K, acopf_mds), "card": card}), flush=True)
+    if "dense" in runs:
+        dense_run(torch, K, card)
     return 0
+
+
+@contextlib.contextmanager
+def _count_syncs(torch):
+    """Count the calls that make the host wait for the device: ``.item()``,
+    ``.tolist()``, ``bool``/``float``/``int`` of a CUDA tensor and
+    ``.cpu()`` of one."""
+    counts = {"syncs": 0}
+    T = torch.Tensor
+    names = ("item", "tolist", "__bool__", "__float__", "__int__", "cpu")
+    saved = {k: getattr(T, k) for k in names}
+
+    def wrap(f):
+        def counted(self, *a, **k):
+            if self.is_cuda:
+                counts["syncs"] += 1
+            return f(self, *a, **k)
+        return counted
+
+    for k in names:
+        setattr(T, k, wrap(saved[k]))
+    try:
+        yield counts
+    finally:
+        for k, f in saved.items():
+            setattr(T, k, f)
+
+
+def _dense_case(torch, K, run) -> dict:
+    """One solve four times: cold (the first in the process at its shapes),
+    timed warm (kernel events on), counting host synchronizations, and
+    under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    K.stats.reset()
+    K.stats.timing = True
+    t0 = time.perf_counter()
+    r = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kms = K.stats.device_ms()
+    K.stats.timing = False
+    sizes = {f"{k[0]}:{k[1]}:{k[2]}": v for k, v in sorted(K.stats.sizes.items())}
+    its = max(r.iterations, 1)
+    with _count_syncs(torch) as counts:
+        r2 = run()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return {
+        "status": r.status.name, "iterations": r.iterations, "obj": r.obj, "cold_wall_s": cold, "wall_s": wall,
+        "s_per_iter": wall / its, "kernel_ms_per_iter": {k: v / its for k, v in kms.items()},
+        "launches": sizes, "syncs_per_iter": counts["syncs"] / max(r2.iterations, 1),
+        "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / (wall * 1e3),
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+    }
+
+
+def dense_run(torch, K, card) -> None:
+    from chip_smoke import QN_N
+    from hiop_tpu_torch.examples import dense_ex1, dense_ex2
+
+    # the first calls in the process, each timed alone and in this order: f
+    # itself, its gradient, a vmap, the Hessian of f and of the Lagrangian
+    # (torch.func), the Cholesky kernel at n^2 (its CUDA graph is captured
+    # at the first call) and the triangular solves (cuSOLVER)
+    dev = torch.device("cuda", 0)
+    n0 = 5000
+    p = dense_ex2.autodiff_problem(n0, dev)
+    x = torch.full((n0,), 1.1, dtype=torch.float64, device=dev)
+    lam = torch.ones(4, dtype=torch.float64, device=dev)
+    first = {}
+
+    def first_call(name, fn):
+        for key in ("cold_ms", "warm_ms"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            first.setdefault(name, {})[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    from hiop_tpu_torch.linalg.cholesky import cholesky
+
+    f = lambda v: 0.25 * torch.sum((v - 1.0) ** 4)  # noqa: E731
+    first_call("elementwise f", lambda: f(x))
+    first_call("torch.func.grad", lambda: torch.func.grad(f)(x))
+    first_call("torch.func.vmap", lambda: torch.func.vmap(lambda v: v * x)(x[:64, None].expand(64, n0)))
+    first_call("torch.func.hessian of f", lambda: torch.func.hessian(f)(x))
+    H = first_call("hessian", lambda: p.eval_hess_lagr(x, 1.0, lam)).contiguous()
+    H.diagonal().add_(1.0)
+    L = first_call("cholesky kernel", lambda: cholesky(H))
+    first_call("cholesky_solve", lambda: torch.cholesky_solve(torch.ones(n0, 5, dtype=H.dtype, device=dev), L))
+    del H, L
+    out = {"first calls at n=%d" % n0: first}
+    out["qn dense_ex1 n=%d" % QN_N] = _dense_case(
+        torch, K, lambda: dense_ex1.solve(QN_N, verbosity_level=0))
+    for n in (5000, 10000):
+        case = _dense_case(torch, K, lambda: dense_ex2.solve_newton(n, verbosity_level=0))
+        p = dense_ex2.autodiff_problem(n, dev)
+        x = torch.full((n,), 1.1, dtype=torch.float64, device=dev)
+        lam = torch.ones(4, dtype=torch.float64, device=dev)
+        p.eval_hess_lagr(x, 1.0, lam)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            p.eval_hess_lagr(x, 1.0, lam)
+        torch.cuda.synchronize()
+        case["hessian_ms"] = (time.perf_counter() - t0) * 1e3 / 3
+        case["hessian_extra_gib"] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out["newton dense_ex2 n=%d" % n] = case
+    print(json.dumps({"dense": out, "card": card}), flush=True)
 
 
 def ldl_only(torch, K, acopf_mds, card) -> None:

@@ -40,9 +40,30 @@ the script exits nonzero):
 9. the operator-form mixed-precision KKT (``factorize_saddle_device_mp_op``
    / ``solve_saddle_device_mp_op``) at phase 8's last iterate: the f32
    LDL^T at 4736^2, a certified direction that agrees with the f64
-   ``factorize_saddle_device`` one to ``OP_FORM_RTOL``.
+   ``factorize_saddle_device`` one to ``OP_FORM_RTOL``;
+10. the quasi-Newton (L-BFGS) path, ``FilterIPMQuasiNewton`` over
+    ``NlpDenseConstraints``: HiOp's four dense examples at their largest
+    published size (n = ``QN_N``; ``dense_ex4`` has n = 2), each at its
+    saved objective by the examples' own test, through the Cholesky kernel
+    of the m x m low-rank Schur system where m > 0; iterations, s/iter and
+    peak memory;
+11. the dense exact-Newton path, ``FilterIPMNewton`` over
+    ``NlpDenseConstraints``: DenseConsEx2's f and c through
+    ``AutoDiffNlpProblem`` (``torch.func`` derivatives, the dense
+    n x n Lagrangian Hessian) at n = ``NEWTON_N`` on the default ladder, at
+    ``SELFCHECK[NEWTON_N]``, through the Cholesky kernel at n^2; prints the
+    tier sequence, s/iter, kernel ms per iteration, whether the host
+    ``lu_eig`` tier ran, the ``torch.func.hessian`` time and memory; run
+    twice, and the two runs must give the same bits;
+12. the same with the device safe tier pinned from the first iteration
+    (``linear_solver_dense=ldl_nopiv``, ``_safe_mode = 1``): the no-pivot
+    LDL^T of the XDYcYd saddle (n + 7, padded to a multiple of 128), the
+    negative-pivot count of each accepted factorization beside m_c + m_d,
+    and whether the three-mismatch switch to the curvature test fired;
+13. the same as 11 with ``kkt_fact_dtype=float32``: the f32 Cholesky at
+    n^2, the f32 fraction, the demotions and the inner FGMRES iterations.
 
-Each main-path phase sets the launch counts to zero just before the solve
+Each main-path phase sets the launch counts to zero just before each solve
 and reads them just after. The last three lines of standard output are the
 ``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line, and
 ``{"ok": true, "device": {...}}``.
@@ -83,6 +104,13 @@ B512_MP_MAX_ITER = 10
 #: phase 9: the op-form direction against the f64 device saddle's, relative
 #: to each block's largest entry (both certified to ~1e-9 in residual)
 OP_FORM_RTOL = 1e-6
+
+#: phase 10: the dense examples' largest published size
+#: (NlpDenseConsEx{1,2,3}Driver.cpp self-check tables)
+QN_N = 50000
+
+#: phases 11-13: the dense exact-Newton size (a 5000^2 f64 Hessian, 200 MB)
+NEWTON_N = 5000
 
 
 def _log(*a) -> None:
@@ -147,6 +175,24 @@ def _saddle(torch, n: int, seed: int, dtype, dev):
     return (s[:, None] * M * s[None, :]).to(dtype).to(dev), m
 
 
+def _xdycyd_saddle(torch, n: int, seed: int, dtype, dev):
+    """A random XDYcYd matrix shaped like the dense Newton safe tier's at
+    DenseConsEx2 (m_c = 1, m_d = 3: size n + 7): an SPD Hessian block, a
+    positive barrier diagonal, a dense Jacobian. Its inertia has
+    m_c + m_d = 4 negative eigenvalues."""
+    from hiop_tpu_torch.kkt import newton_dense as kkt_nd
+
+    g = torch.Generator().manual_seed(seed)
+    G = torch.randn(n, n, generator=g, dtype=torch.float64)
+    H = G @ G.T / n + torch.eye(n, dtype=torch.float64)
+    Dx = torch.rand(n, generator=g, dtype=torch.float64)
+    Dd = torch.rand(3, generator=g, dtype=torch.float64) + 0.1
+    Jc = torch.randn(1, n, generator=g, dtype=torch.float64)
+    Jd = torch.randn(3, n, generator=g, dtype=torch.float64)
+    M = kkt_nd.assemble_xdycyd(H, Dx, Dd, Jc, Jd, 0.0, 0.0, 0.0, 0.0)
+    return M.to(dtype).to(dev), 4
+
+
 def _rel(torch, a, b) -> float:
     return float((a - b).abs().max() / b.abs().max().clamp(min=1e-300))
 
@@ -162,7 +208,7 @@ def phase_kernels(torch, dev):
         dname = str(dt).replace("torch.", "")
         itemsize = torch.empty((), dtype=dt).element_size()
         # --- Cholesky: ragged/aligned small n and the main path's K_d, S
-        for n in (1, 37, 128, 300, 102, 4608):
+        for n in (1, 4, 37, 128, 300, 102, 4608, NEWTON_N):
             A = _spd(torch, n, n, dt, dev)
             L = chol.cholesky(A)
             L2 = chol.cholesky(A)
@@ -193,8 +239,11 @@ def phase_kernels(torch, dev):
             _check(bool(torch.isnan(L[lower]).all()) and bool((L[~lower] == 0).all()),
                    f"cholesky {dname}: non-PD input of size {n} must give an all-NaN lower triangle")
         # --- no-pivot LDL^T: the safe tier's saddles at B=16, 32, 512
-        for n in (148, 294, 4710):
-            M, m = _saddle(torch, n, n, dt, dev)
+        for n in (148, 294, 4710, NEWTON_N + 7):
+            if n == NEWTON_N + 7:
+                M, m = _xdycyd_saddle(torch, NEWTON_N, n, dt, dev)
+            else:
+                M, m = _saddle(torch, n, n, dt, dev)
             f = ldl.ldl_factor(M)
             f2 = ldl.ldl_factor(M)
             n_p = f.L.shape[0]
@@ -349,6 +398,187 @@ def phase_mixed_precision(torch, dev) -> dict:
          f"(tolerance {OP_FORM_RTOL:g})")
     _check(op[5], "op-form: the f32 direction was not certified")
     _check(max(errs) <= OP_FORM_RTOL, f"op-form: direction differs from the f64 one by {max(errs):.3e}")
+    return out
+
+
+def phase_qn(torch) -> dict:
+    """Phase 10: HiOp's dense examples through FilterIPMQuasiNewton."""
+    from hiop_tpu_torch.examples import dense_ex1, dense_ex2, dense_ex3, dense_ex4
+
+    runs = (
+        ("dense_ex1", lambda: dense_ex1.solve(QN_N, verbosity_level=0), dense_ex1.SELFCHECK[QN_N]),
+        ("dense_ex2", lambda: dense_ex2.solve(QN_N, verbosity_level=0), dense_ex2.SELFCHECK[QN_N]),
+        ("dense_ex2 -unconstrained", lambda: dense_ex2.solve(QN_N, unconstrained=True, verbosity_level=0),
+         dense_ex2.SELFCHECK_UNCON[QN_N]),
+        ("dense_ex3 fixed_var=relax", lambda: dense_ex3.solve(QN_N, fixed_var="relax", verbosity_level=0),
+         dense_ex3.SELFCHECK[QN_N]),
+        ("dense_ex4", lambda: dense_ex4.solve(verbosity_level=0), (dense_ex4.SELFCHECK_OBJ, 1e-6)),
+        ("dense_ex4 -unconstrained", lambda: dense_ex4.solve(unconstrained=True, verbosity_level=0),
+         (dense_ex4.UNCONSTRAINED_OBJ, 1e-6)),
+    )
+    out = {}
+    for name, run, (ref, tol) in runs:
+        # the low-rank KKT's m x m Schur system goes through the Cholesky
+        # kernel; without constraints (m = 0) there is none
+        need = {} if "unconstrained" in name else {"cholesky": "the low-rank KKT's m x m Schur system"}
+        torch.cuda.reset_peak_memory_stats()
+        r, wall, _, sizes = _solve_phase(torch, name, run, need)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _log(f"  {name}: {r.iterations} iterations, {wall / max(r.iterations, 1):.4f} s/iter, "
+             f"obj {r.obj!r} (saved {ref!r}), peak memory {peak:.3f} GiB")
+        _check(r.status.is_success, f"{name}: status {r.status.name}")
+        _check(dense_ex1.selfcheck_ok(r.obj, ref, tol), f"{name}: obj {r.obj!r} vs saved {ref!r} (tol {tol:g})")
+        out[name] = sizes
+    return out
+
+
+def _forced_safe_newton(filter_ipm):
+    """A FilterIPMNewton whose dense strategy starts in the first safe tier
+    (the JAX package's ``_ForcedSafeNewton``, tests/test_ldl_blocked.py)."""
+
+    class ForcedSafeNewton(filter_ipm.FilterIPMNewton):
+        def _make_strategy(self):
+            st = super()._make_strategy()
+            st._safe_mode = 1
+            return st
+
+    return ForcedSafeNewton
+
+
+@contextlib.contextmanager
+def _dense_log(filter_ipm, krylov):
+    """Record, in order, the slot and dtype of each dense Newton
+    factorization (``quick-f64``, ``ldl_nopiv-f32`` ...), the inertia of
+    each safe-tier acceptance test (negative count as a tensor, m_c + m_d,
+    accepted), each demotion of f32, the inner FGMRES iterations and the
+    last strategy, and the time at which each iteration's KKT update began."""
+    import torch
+
+    log = {"fact": [], "inertia": [], "demotions": [], "ir_inner": 0, "strategy": None, "t": []}
+    S = filter_ipm._NewtonDenseStrategy
+    factorize, acceptable, prepare = S._factorize, S._factorization_acceptable, S.prepare
+    demote, fgmres = filter_ipm._mp_demote, krylov.fgmres
+
+    def tagged(self):
+        slot = self._safe_tiers[self._safe_mode - 1] if self._safe_mode else "quick"
+        log["fact"].append(f"{slot}-{'f32' if self.fact_dtype == torch.float32 else 'f64'}")
+        return factorize(self)
+
+    def judged(self, f):
+        ok, singular = acceptable(self, f)
+        if self._safe_mode:
+            log["inertia"].append((f.n_neg_eig, f.mc + f.md, ok))
+        return ok, singular
+
+    def kept(self, *a, **k):
+        log["strategy"] = self
+        log["t"].append(time.perf_counter())
+        return prepare(self, *a, **k)
+
+    def demoted(strategy, why):
+        if strategy._mp_f32_ok:
+            log["demotions"].append(why)
+        return demote(strategy, why)
+
+    def counted(*a, **k):
+        x, info = fgmres(*a, **k)
+        log["ir_inner"] += info.iters
+        return x, info
+
+    S._factorize, S._factorization_acceptable, S.prepare = tagged, judged, kept
+    filter_ipm._mp_demote, krylov.fgmres = demoted, counted
+    try:
+        yield log
+    finally:
+        S._factorize, S._factorization_acceptable, S.prepare = factorize, acceptable, prepare
+        filter_ipm._mp_demote, krylov.fgmres = demote, fgmres
+
+
+def _hessian_cost(torch, dense_ex2, x) -> tuple:
+    """Time (ms, warm, after a synchronize) and the extra peak device memory
+    (GiB) of one ``torch.func.hessian`` of DenseConsEx2's Lagrangian at x."""
+    p = dense_ex2.autodiff_problem(NEWTON_N, x.device)
+    lam = torch.ones(4, dtype=torch.float64, device=x.device)
+    p.eval_hess_lagr(x, 1.0, lam)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        p.eval_hess_lagr(x, 1.0, lam)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / 3
+    return ms, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+
+def phase_dense_newton(torch, dev) -> dict:
+    """Phases 11-13: DenseConsEx2 through AutoDiffNlpProblem and
+    FilterIPMNewton at n = NEWTON_N."""
+    from hiop_tpu_torch.examples import dense_ex2
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.linalg import krylov
+    from hiop_tpu_torch.optimization import filter_ipm
+
+    ref, tol = dense_ex2.SELFCHECK[NEWTON_N]
+    n_chol, n_ldl = f"cholesky:{NEWTON_N}:float64", f"ldl_nopiv:{(NEWTON_N + 7 + 127) // 128 * 128}:float64"
+    out = {}
+
+    def solve(name, need, **opts):
+        torch.cuda.reset_peak_memory_stats()
+        K.stats.timing = True
+        with _dense_log(filter_ipm, krylov) as log:
+            r, wall, _, sizes = _solve_phase(
+                torch, name, lambda: dense_ex2.solve_newton(NEWTON_N, verbosity_level=0, **opts), need)
+        kms = K.stats.device_ms(by_dtype=True)
+        K.stats.timing = False
+        its = max(r.iterations, 1)
+        kernel = {f"{k}:{d}": round(v / its, 4) for (k, d), v in sorted(kms.items())}
+        steps = [b - a for a, b in zip(log["t"], log["t"][1:])]
+        if steps:
+            _log(f"  {name}: seconds between KKT updates: first three "
+                 f"{[round(x, 4) for x in steps[:3]]}, median {sorted(steps)[len(steps) // 2]:.4f}")
+        _log(f"  {name}: {r.status.name} after {r.iterations} iterations, {wall / its:.4f} s/iter; "
+             f"kernel ms/iter {kernel}; factorizations in order: {_runs(log['fact'])}; host lu_eig "
+             f"tier {'ran' if any(t.startswith('lu_eig') for t in log['fact']) else 'did not run'}; "
+             f"obj {r.obj!r} (saved {ref!r}); max_memory_allocated "
+             f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        _check(r.status.is_success, f"{name}: status {r.status.name}")
+        _check(dense_ex2.selfcheck_ok(r.obj, ref, tol), f"{name}: obj {r.obj!r} vs saved {ref!r}")
+        out[name] = sizes
+        return r, log, sizes
+
+    _log(f"[11] dense Newton: DenseConsEx2 through AutoDiffNlpProblem, n={NEWTON_N}, default ladder")
+    r1, log, sizes = solve("dense newton", {"cholesky": "quick tier: K = H + Dx + delta_w I"})
+    _check(sizes.get(n_chol, 0) > 0, f"dense newton: no launch {n_chol}")
+    r2, _, _ = solve("dense newton, again", {"cholesky": "quick tier"})
+    same = (r1.iterations == r2.iterations and r1.obj == r2.obj and r1.x.tobytes() == r2.x.tobytes())
+    _log(f"  two runs give the same bits: {same}")
+    _check(same, "dense newton: two runs differ")
+    x = torch.as_tensor(r1.x, device=dev)
+    h_ms, h_gib = _hessian_cost(torch, dense_ex2, x)
+    _log(f"  torch.func.hessian at n={NEWTON_N}: {h_ms:.3f} ms, peak {h_gib:.3f} GiB above the live tensors")
+    out["hessian"] = {"ms": h_ms, "peak_gib": h_gib}
+
+    _log(f"[12] dense Newton with the device safe tier pinned (linear_solver_dense=ldl_nopiv, "
+         f"_safe_mode=1): the XDYcYd saddle {NEWTON_N + 7}")
+    _, log, sizes = solve("dense newton safe", {"ldl_nopiv": "device safe tier", "cholesky": "quick tier"},
+                          linear_solver_dense="ldl_nopiv", solver_cls=_forced_safe_newton(filter_ipm))
+    _check(sizes.get(n_ldl, 0) > 0, f"dense newton safe: no launch {n_ldl}")
+    st = log["strategy"]
+    accepted = [(int(nn), m) for nn, m, ok in log["inertia"] if ok]
+    _log(f"  negative pivots of each accepted safe-tier factorization (m_c+m_d): "
+         f"{[f'{nn} ({m})' for nn, m in accepted]}; rejected {sum(1 for *_, ok in log['inertia'] if not ok)}; "
+         f"inertia mismatches {st._inertia_mismatches}; three-mismatch switch to the curvature test "
+         f"{'fired' if st._inertia_mismatches >= 3 else 'did not fire'}")
+
+    _log(f"[13] dense Newton with kkt_fact_dtype=float32, n={NEWTON_N}")
+    _, log, sizes = solve("dense newton f32", {"cholesky": "quick tier in f32"}, kkt_fact_dtype="float32")
+    f32 = f"cholesky:{NEWTON_N}:float32"
+    _check(sizes.get(f32, 0) > 0, f"dense newton f32: no launch {f32}")
+    n_f32 = sum(1 for t in log["fact"] if t.endswith("f32"))
+    _log(f"  dense newton f32: {n_f32} of {len(log['fact'])} factorizations in f32 "
+         f"({n_f32 / max(len(log['fact']), 1):.3f}); demotions {log['demotions']}; inner FGMRES "
+         f"iterations {log['ir_inner']}")
     return out
 
 
@@ -583,6 +813,10 @@ def main() -> int:
 
     mp = phase_mixed_precision(torch, dev)
 
+    _log(f"[10] quasi-Newton: HiOp's dense examples at n={QN_N} through FilterIPMQuasiNewton")
+    qn = phase_qn(torch)
+    dense = phase_dense_newton(torch, dev)
+
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
     main_n = {"cholesky": 4608, "ldl_nopiv": 4736}
@@ -600,7 +834,10 @@ def main() -> int:
                 ms=head["ms"], kernel_ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"], library_ms=head["library_ms"],
                 n=head["n"], dtype=dname, ms_per_iter_b512=per_iter,
-                shapes=[x for x in rows[name] if x["dtype"] == dname]))
+                shapes=[x for x in rows[name] if x["dtype"] == dname],
+                dense_path_launches={
+                    phase: {k: v for k, v in sizes.items() if k.startswith(name + ":") and k.endswith(dname)}
+                    for phase, sizes in {**qn, **dense}.items() if isinstance(sizes, dict) and phase != "hessian"}))
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

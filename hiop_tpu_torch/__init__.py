@@ -2,11 +2,14 @@
 
 It mirrors ``hiop_tpu``'s module layout file for file. ``hiop_tpu`` (JAX)
 is the reference each ported module is tested against; this package never
-imports it or JAX. The port covers the Newton filter line-search IPM on
-mixed dense-sparse (MDS) problems through the general loop, in f64 and in
-mixed precision (``kkt_fact_dtype=float32`` with f64 FGMRES refinement),
-with hand-written CUDA kernels for the blocked Cholesky (quick tier) and
-the blocked no-pivot LDL^T (inertia-revealing safe tier).
+imports it or JAX. The port covers the filter line-search IPM through the
+general loop: the Newton solver on mixed dense-sparse (MDS) and
+dense-constrained problems (every dense KKT class: XDYcYd, XYcYd,
+condensed, normal equations, full), and the quasi-Newton (L-BFGS) solver on
+dense-constrained problems, in f64 and in mixed precision
+(``kkt_fact_dtype=float32`` with f64 FGMRES refinement). Hand-written CUDA
+kernels carry the blocked Cholesky (quick tiers, the low-rank KKT's Schur
+system) and the blocked no-pivot LDL^T (inertia-revealing safe tiers).
 
 Entry points run on ``cuda:0`` unless the options set
 ``compute_mode="cpu"``; without a CUDA device they raise.
@@ -28,8 +31,14 @@ if _torch.backends.cuda.matmul.allow_tf32 or _torch.backends.cudnn.allow_tf32:
 from hiop_tpu_torch.status import SolveStatus  # noqa: E402
 from hiop_tpu_torch.utils.options import NlpOptions  # noqa: E402
 from hiop_tpu_torch.utils.logger import Logger, Verbosity  # noqa: E402
-from hiop_tpu_torch.interface.base import MdsProblem, NlpProblem  # noqa: E402
+from hiop_tpu_torch.interface.base import (  # noqa: E402
+    AutoDiffNlpProblem,
+    DenseConstraintsProblem,
+    MdsProblem,
+    NlpProblem,
+)
 from hiop_tpu_torch.formulation.base import NlpFormulation  # noqa: E402
+from hiop_tpu_torch.formulation.dense import NlpDenseConstraints  # noqa: E402
 from hiop_tpu_torch.formulation.mds import NlpMDS  # noqa: E402
 from hiop_tpu_torch.optimization.filter_ipm import (  # noqa: E402
     FilterIPMNewton,
@@ -44,8 +53,11 @@ __all__ = [
     "Logger",
     "Verbosity",
     "NlpProblem",
+    "DenseConstraintsProblem",
     "MdsProblem",
+    "AutoDiffNlpProblem",
     "NlpFormulation",
+    "NlpDenseConstraints",
     "NlpMDS",
     "FilterIPMNewton",
     "FilterIPMQuasiNewton",

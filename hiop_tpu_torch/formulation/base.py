@@ -230,6 +230,22 @@ class NlpFormulation:
         """Formulation-specific; see subclasses."""
         raise NotImplementedError
 
+    def eval_hess(self, x, obj_factor, yc, yd):
+        """Dense (n, n) Lagrangian Hessian of the *scaled* problem; needed by
+        the dense Newton solver. Formulation-specific; see subclasses."""
+        raise NotImplementedError(
+            "this formulation does not provide a dense Lagrangian Hessian"
+        )
+
+    def _lam_user_order(self, yc, yd):
+        """Recombine (yc, yd) into user constraint order with scaling."""
+        lam = torch.zeros((self.m,), dtype=torch.float64, device=self.device)
+        if self.m_eq:
+            lam[self._eq_idx_t] = yc * self.scale_cons_eq
+        if self.m_ineq:
+            lam[self._ineq_idx_t] = yd * self.scale_cons_ineq
+        return lam
+
     def get_starting_point(self):
         return self._dev(np.asarray(self.problem.get_starting_point(), dtype=np.float64))
 

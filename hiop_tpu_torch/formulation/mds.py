@@ -104,11 +104,7 @@ class NlpMDS(NlpFormulation):
     def eval_hess_blocks(self, x, obj_factor, yc, yd):
         """Returns (hss_diag, Hdd), scaled."""
         self.runstats.n_eval_hess += 1
-        lam = torch.zeros((self.m,), dtype=x.dtype, device=x.device)
-        if self.m_eq:
-            lam[self._eq_idx_t] = yc * self.scale_cons_eq
-        if self.m_ineq:
-            lam[self._ineq_idx_t] = yd * self.scale_cons_ineq
+        lam = self._lam_user_order(yc, yd)
         with self.runstats.tm_eval_hess:
             hss, hdd = self.problem.eval_hess_blocks(
                 x, obj_factor * self.scale_obj, lam

@@ -1,9 +1,11 @@
 """User-facing NLP problem interfaces (L4).
 
 Counterpart of ``hiop_tpu/interface/base.py`` (reference
-hiopInterface.hpp:134,586): :class:`NlpProblem` (sizes, bounds,
-f/grad/cons evaluations, starting point, callbacks) and
-:class:`MdsProblem` (mixed dense-sparse block structure).
+hiopInterface.hpp:134,518,586): :class:`NlpProblem` (sizes, bounds,
+f/grad/cons evaluations, starting point, callbacks),
+:class:`DenseConstraintsProblem` (a dense constraint Jacobian),
+:class:`MdsProblem` (mixed dense-sparse block structure) and
+:class:`AutoDiffNlpProblem` (derivatives from ``torch.func``).
 
 Evaluations receive ``x`` as a float64 tensor on the solver's device and
 may return tensors, numpy arrays or Python scalars; the formulation moves
@@ -14,9 +16,10 @@ on ``x.device`` keeps the whole evaluation on the card.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
+import torch
 
 INF = 1e20  # bound magnitude treated as infinity, same convention as the reference
 
@@ -102,6 +105,14 @@ class NlpProblem:
         return x
 
 
+class DenseConstraintsProblem(NlpProblem):
+    """Dense-Jacobian NLP (hiopInterfaceDenseConstraints, hiopInterface.hpp:518)."""
+
+    def eval_jac_cons(self, x):
+        """Return the dense (m, n) Jacobian of all constraints."""
+        raise NotImplementedError
+
+
 class MdsProblem(NlpProblem):
     """Mixed dense-sparse NLP (hiopInterfaceMDS, hiopInterface.hpp:586).
 
@@ -127,3 +138,79 @@ class MdsProblem(NlpProblem):
     def eval_hess_blocks(self, x, obj_factor, lam):
         """Return (hss_diag (n_sparse,), hdd (n_dense, n_dense))."""
         raise NotImplementedError
+
+
+class AutoDiffNlpProblem(NlpProblem):
+    """Define an NLP from torch-traceable ``f`` and ``c`` alone.
+
+    The derivatives come from ``torch.func``: the gradient of
+    ``f(x).sum()``, the forward-mode Jacobian of ``c``, and the Hessian of
+    the Lagrangian ``obj_factor * f + lam . c`` (``hessian`` is
+    ``jacfwd(jacrev(.))``). Every evaluation runs in torch on the device
+    of ``x``, the solver's device; ``f`` and ``c`` must keep any constant
+    tensors they close over on that device.
+
+    >>> p = AutoDiffNlpProblem(f=lambda x: (x**2).sum(), c=lambda x: x[:1],
+    ...                        xl=..., xu=..., cl=..., cu=..., x0=...)
+    """
+
+    def __init__(
+        self,
+        f: Callable,
+        c: Optional[Callable],
+        xl,
+        xu,
+        cl,
+        cu,
+        x0,
+        name: str = "autodiff_nlp",
+    ):
+        from torch.func import grad, hessian, jacfwd
+
+        self.name = name
+        self._f = f
+        self._c = c
+        self._grad_f = grad(lambda x: f(x).sum())
+        self._jac_c = jacfwd(c) if c is not None else None
+        self._xl = np.asarray(xl, dtype=np.float64)
+        self._xu = np.asarray(xu, dtype=np.float64)
+        self._cl = np.atleast_1d(np.asarray(cl, dtype=np.float64))
+        self._cu = np.atleast_1d(np.asarray(cu, dtype=np.float64))
+        self._x0 = np.asarray(x0, dtype=np.float64)
+
+        def lagr(x, obj_factor, lam):
+            val = obj_factor * f(x).sum()
+            return val + lam @ c(x) if c is not None else val
+
+        self._hess_lagr = hessian(lagr, argnums=0)
+
+    def get_prob_sizes(self):
+        return self._x0.shape[0], self._cl.shape[0]
+
+    def get_vars_info(self):
+        return self._xl, self._xu
+
+    def get_cons_info(self):
+        return self._cl, self._cu
+
+    def get_starting_point(self):
+        return self._x0
+
+    def eval_f(self, x):
+        return self._f(x)
+
+    def eval_grad_f(self, x):
+        return self._grad_f(x)
+
+    def eval_cons(self, x):
+        if self._c is None:
+            return x.new_zeros((0,))
+        return self._c(x)
+
+    def eval_jac_cons(self, x):
+        if self._jac_c is None:
+            return x.new_zeros((0, x.shape[0]))
+        return self._jac_c(x)
+
+    def eval_hess_lagr(self, x, obj_factor, lam):
+        return self._hess_lagr(x, torch.as_tensor(obj_factor, dtype=x.dtype, device=x.device), lam)

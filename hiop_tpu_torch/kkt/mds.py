@@ -43,7 +43,7 @@ import scipy.linalg as sla
 import torch
 
 from hiop_tpu_torch.formulation.base import to_numpy
-from hiop_tpu_torch.kkt.newton_dense import _lu_with_inertia
+from hiop_tpu_torch.kkt.newton_dense import _eye, _lu_with_inertia, _pos_inv
 from hiop_tpu_torch.linalg import ldl_blocked as _ldl
 from hiop_tpu_torch.linalg.cholesky import cholesky as _chol
 from hiop_tpu_torch.linalg.vector_ops import scatter_add_
@@ -59,11 +59,6 @@ class MdsFactors(NamedTuple):
     ok_k: torch.Tensor
     ok_s: torch.Tensor
     ok: torch.Tensor
-
-
-def _pos_inv(v):
-    """1/v where v > 0, else 0."""
-    return torch.where(v > 0, 1.0 / torch.clamp(v, min=1e-300), 0.0)
 
 
 def build_schur_pairs(stacked_rows, cols, n_s, device=None, max_pairs=8_000_000):
@@ -113,10 +108,6 @@ def schur_js_triplets(js_vals, ks_inv, pairs, m: int):
     prod = js_vals[pa] * js_vals[pb] * ks_inv[pvar]
     flat = torch.zeros((m * m,), dtype=js_vals.dtype, device=js_vals.device)
     return scatter_add_(flat, prow * m + pcol, prod).reshape(m, m)
-
-
-def _eye(n, like):
-    return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
 def factorize(

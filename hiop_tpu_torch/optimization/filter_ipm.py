@@ -1,7 +1,8 @@
-"""Filter line-search interior-point solver (Newton, MDS formulation).
+"""Filter line-search interior-point solvers (quasi-Newton and Newton).
 
 Counterpart of ``hiop_tpu/optimization/filter_ipm.py`` (reference
-hiopAlgFilterIPMBase / hiopAlgFilterIPMNewton, hiopAlgFilterIPM.hpp:83,446).
+hiopAlgFilterIPMBase / hiopAlgFilterIPMQuasiNewton / hiopAlgFilterIPMNewton,
+hiopAlgFilterIPM.hpp:83,349,446).
 The outer algorithm (mu loop, filter line search, second-order correction,
 dual updates, termination) runs in Python at iteration granularity, while
 the O(n)/O(n*m) math (residuals, KKT factorizations and solves,
@@ -13,16 +14,21 @@ errors/termination -> mu update loop -> KKT update -> search direction ->
 fraction-to-boundary -> backtracking filter line search (with SOC) -> dual
 update -> re-evals }.
 
-The port covers the general loop (``jit_mode=kernels``) with the MDS
-strategy: the quick Cholesky tier and the safe ladder (the native bordered
-sparse LDL^T on the host, device no-pivot LDL^T, host LU + eigen inertia),
-in f64 or with ``kkt_fact_dtype=float32``: f32 factorizations through the
-same kernels, each solve certified by f64 FGMRES refinement
-(:mod:`hiop_tpu_torch.linalg.krylov`) under the ``mp_schedule`` policy, and
-on the card an f32 device LDL^T in place of every safe tier until the
-first rejection or failed certification demotes f32. Options and paths
-that need modules not ported yet raise :class:`NotImplementedError` naming
-the ROADMAP.md item that will port them.
+The port covers the general loop (``jit_mode=kernels``) with three
+search-direction strategies: :class:`_LowRankStrategy` (L-BFGS, the
+low-rank KKT) for the quasi-Newton solver; :class:`_NewtonDenseStrategy`
+(the dense KKT classes, quick Cholesky-Schur tier and safe ladder, FGMRES
+and BiCGStab refinement) and :class:`_MdsStrategy` (the quick Cholesky
+tier and the safe ladder: the native bordered sparse LDL^T on the host,
+device no-pivot LDL^T, host LU + eigen inertia) for the Newton solver. The
+Newton strategies run in f64 or with ``kkt_fact_dtype=float32``: f32
+factorizations through the same kernels, each solve certified by f64
+FGMRES refinement (:mod:`hiop_tpu_torch.linalg.krylov`) under the
+``mp_schedule`` policy, and on the card an f32 device LDL^T in the safe
+slots until the first rejection or failed certification demotes f32.
+Options and paths that need modules not ported yet raise
+:class:`NotImplementedError` naming the ROADMAP.md item that will port
+them.
 """
 
 from __future__ import annotations
@@ -37,15 +43,22 @@ import torch
 from hiop_tpu_torch.backends.execspace import on_accelerator, resolve_device
 from hiop_tpu_torch.formulation.base import NlpFormulation, to_numpy
 from hiop_tpu_torch.interface.base import IterateCallbackInfo
+from hiop_tpu_torch.kkt import condensed as kkt_cond
+from hiop_tpu_torch.kkt import full_space as kkt_full
+from hiop_tpu_torch.kkt import lowrank as kkt_lowrank
 from hiop_tpu_torch.kkt import mds as kkt_mds
+from hiop_tpu_torch.kkt import newton_dense as kkt_nd
+from hiop_tpu_torch.kkt import normal_eqn as kkt_ne
 from hiop_tpu_torch.linalg import krylov
 from hiop_tpu_torch.native import ldl as native_ldl
 from hiop_tpu_torch.optimization import duals_update as du
+from hiop_tpu_torch.optimization import hessian_lowrank as blr
 from hiop_tpu_torch.optimization import iterate as it_mod
 from hiop_tpu_torch.optimization import residual as res_mod
 from hiop_tpu_torch.optimization.filter import Filter
 from hiop_tpu_torch.optimization.iterate import Bounds, Iterate
 from hiop_tpu_torch.optimization.perturbation import make_perturbation
+from hiop_tpu_torch.optimization.residual import Residual
 from hiop_tpu_torch.status import SolveStatus
 from hiop_tpu_torch.utils.logger import Verbosity
 
@@ -89,8 +102,46 @@ _UNPORTED_OPTIONS = (
 
 
 # =====================================================================
-# search-direction strategy
+# search-direction strategies
 # =====================================================================
+class _LowRankStrategy:
+    """Quasi-Newton: compact BFGS + low-rank Schur KKT (no regularization,
+    PDPerturbationNull)."""
+
+    def __init__(self, nlp: NlpFormulation):
+        o = nlp.options
+        self.nlp = nlp
+        self.bfgs = blr.init_state(
+            nlp.n, o.integer("secant_memory_len"), o.num("sigma0"), device=nlp.device,
+        )
+        self.sigma_strategy = o.str_("sigma_update_strategy")
+        self.sigma0 = o.num("sigma0")
+        self.prev = None
+        self.kdata = None
+
+    def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
+        if self.prev is not None:
+            x_prev, grad_prev, Jc_prev, Jd_prev = self.prev
+            s_new = it.x - x_prev
+            y_new = grad_f - grad_prev
+            if Jc.shape[0]:
+                y_new = y_new + (Jc - Jc_prev).T @ it.yc
+            if Jd.shape[0]:
+                y_new = y_new + (Jd - Jd_prev).T @ it.yd
+            self.bfgs = blr.update(self.bfgs, s_new, y_new, self.sigma0, strategy=self.sigma_strategy)
+        self.prev = (it.x, grad_f, Jc, Jd)
+        Dx, Dd = res_mod.barrier_diagonals(it, b)
+        self.kdata = kkt_lowrank.LowRankKKTData(self.bfgs, Dx, Dd, Jc, Jd)
+
+    def compute_direction(self, resid, it: Iterate, b: Bounds):
+        return self.solve_rhs(resid, it, b), True
+
+    def solve_rhs(self, resid, it: Iterate, b: Bounds) -> Iterate:
+        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
+        dx, dd, dyc, dyd = kkt_lowrank.solve_compressed(self.kdata, rx_t, rd_t, ryc, ryd)
+        return res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd)
+
+
 def _maybe_escalate_chronic(strategy, can_escalate: bool) -> None:
     """Escalate a KKT strategy to its next safe tier when the current tier
     only passes its acceptance checks with a persistent primal
@@ -238,6 +289,375 @@ def _dense_safe_tiers(o) -> tuple:
     if dense_solver == "ldl_nopiv":
         return ("ldl_nopiv",)
     return ("lu_eig",)
+
+
+class _NewtonDenseStrategy:
+    """Exact Hessian with the dense XDYcYd KKT (or XYcYd, condensed,
+    normal equations, full) and the quick/safe ladder.
+
+    The factorize -> acceptance test -> regularize loop mirrors
+    factorizeWithCurvCheck + compute_search_direction[_inertia_free]
+    (hiopKKTLinSys.hpp:204, hiopAlgFilterIPM.cpp:3335,3374), at most 10
+    refactorizations per direction. The quick tier is the Cholesky-Schur
+    reduction (both factorizations on the Cholesky kernel); the safe tiers
+    come from :func:`_dense_safe_tiers` (the device no-pivot LDL^T, then
+    the host LU + eigen inertia). With ``kkt_fact_dtype=float32`` the
+    factorizations follow :func:`_mp_fact_dtype` and each compressed solve
+    is refined in f64 by FGMRES (:meth:`_inner_refine`); every direction
+    may be refined over the full 12-block operator by BiCGStab
+    (:meth:`_maybe_refine`, option ``ir_outer_maxit``)."""
+
+    MAX_REFACT = 10
+
+    def __init__(self, nlp: NlpFormulation, logger, stats):
+        o = nlp.options
+        self.nlp = nlp
+        self.log = logger
+        self.stats = stats
+        self.perturb = make_perturbation(o, for_newton=True)
+        self.inertia_free = o.str_("fact_acceptor") == "inertia_free"
+        self.neg_curv_fact = o.num("neg_curv_test_fact")
+        self.linsol_mode = o.str_("linsol_mode")
+        # KKT class selection (decideAndCreateLinearSystem, cpp:1848-1901):
+        # 'condensed' needs an inequality-only NLP (the formulation relaxed
+        # the equalities), 'normaleqn' a diagonal Hessian; condensed,
+        # normaleqn and the nonsymmetric LU of 'full' carry no inertia, so
+        # they take the curvature acceptor
+        self.kkt_kind = o.str_("KKTLinsys")
+        if self.kkt_kind == "auto":
+            self.kkt_kind = "xdycyd"
+        if self.kkt_kind == "condensed" and nlp.m_eq > 0:
+            raise ValueError("condensed KKT requires an inequality-only NLP")
+        if self.kkt_kind in ("condensed", "normaleqn", "full"):
+            self.inertia_free = True
+        self.ir_maxit = o.integer("ir_outer_maxit")
+        self.ir_tol_factor = o.num("ir_outer_tol_factor")
+        self.ir_tol_min = o.num("ir_outer_tol_min")
+        self._fact_dtype_opt = (
+            torch.float32 if o.str_("kkt_fact_dtype") == "float32" else torch.float64
+        )
+        self._H = None
+        self._Dx = self._Dd = None
+        self._Jc = self._Jd = None
+        self._mu = 1.0
+        self._factors = None
+        self._inertia_mismatches = 0
+        # index into (quick,) + _safe_tiers; escalation through the safe
+        # tiers is switch_to_safer_KKT (unless linsol_mode='forcequick')
+        self._safe_mode = 0
+        self._safe_tiers = _dense_safe_tiers(o)
+        self._chronic_delta = 0
+        _mp_init(self, o)
+
+    def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
+        _maybe_deescalate_safe(self)
+        _maybe_escalate_chronic(self, self.kkt_kind in ("xdycyd", "xycyd"))
+        with self.stats.kkt.tm_update_init:
+            self._H = self.nlp.eval_hess(it.x, 1.0, it.yc, it.yd)
+            self._Dx, self._Dd = res_mod.barrier_diagonals(it, b)
+            self._Jc, self._Jd = Jc, Jd
+        self._itb = (it, b)
+        self.perturb.set_mu(float(mu))
+        self.perturb.compute_initial_deltas()
+        self._mu = float(mu)
+        self._factors = None
+
+    # -- factorization ----------------------------------------------------
+    @property
+    def fact_dtype(self):
+        """Effective factorization dtype: see :func:`_mp_fact_dtype`."""
+        return _mp_fact_dtype(self)
+
+    def _cast(self, a):
+        return a.to(self.fact_dtype) if a.dtype != self.fact_dtype else a
+
+    def _factorize(self):
+        p = self.perturb
+        _mp_count_fact(self)
+        if self.fact_dtype != torch.float64:
+            H, Dx, Dd = self._cast(self._H), self._cast(self._Dx), self._cast(self._Dd)
+            Jc, Jd = self._cast(self._Jc), self._cast(self._Jd)
+        else:
+            H, Dx, Dd, Jc, Jd = self._H, self._Dx, self._Dd, self._Jc, self._Jd
+        deltas = (p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd)
+        with self.stats.kkt.tm_update_fact:
+            if self.kkt_kind == "full":
+                it_k, b_k = self._itb
+                return kkt_full.factorize_full(self._H, self._Jc, self._Jd, it_k, b_k, deltas)
+            if self.kkt_kind == "condensed":
+                return kkt_cond.factorize(H, Dx, Dd, Jd, p.delta_wx, p.delta_wd, p.delta_cd)
+            if self.kkt_kind == "normaleqn":
+                return kkt_ne.factorize(torch.diagonal(H), Dx, Dd, Jc, Jd, *deltas)
+            if self._safe_mode:
+                tier = self._safe_tiers[self._safe_mode - 1]
+                if self.kkt_kind == "xycyd":
+                    # the 3x3 XYcYd realization: d eliminated through the
+                    # (Dd+delta_wd)^{-1} block (hiopKKTLinSys.hpp:292)
+                    fact = (
+                        kkt_nd.factorize_xycyd_safe_device
+                        if tier == "ldl_nopiv"
+                        else kkt_nd.factorize_xycyd_safe
+                    )
+                    return fact(H, Dx, Dd, Jc, Jd, *deltas)
+                if tier == "ldl_nopiv":
+                    return kkt_nd.factorize_safe_device(H, Dx, Dd, Jc, Jd, *deltas)
+                return kkt_nd.factorize_safe(H, Dx, Dd, Jc, Jd, *deltas)
+            # the quick tier's Schur elimination of x gives the same reduced
+            # system for both compressed linearizations
+            return kkt_nd.factorize_quick(H, Dx, Dd, Jc, Jd, *deltas)
+
+    def _solve_factors(self, f, rx_t, rd_t, ryc, ryd):
+        mixed = self.fact_dtype != torch.float64
+        if mixed:
+            rx_t, rd_t, ryc, ryd = (self._cast(a) for a in (rx_t, rd_t, ryc, ryd))
+        if self.kkt_kind == "condensed":
+            dx, dd, dyd = kkt_cond.solve(f, rx_t, rd_t, ryd, self.perturb.delta_cd)
+            out = dx, dd, torch.zeros_like(ryc), dyd
+        elif self.kkt_kind == "normaleqn":
+            out = kkt_ne.solve(f, rx_t, rd_t, ryc, ryd)
+        elif self._safe_mode:
+            if isinstance(f, (kkt_nd.XycydSafeFactors, kkt_nd.XycydDeviceLdlFactors)):
+                # 3x3 solve in (dx, dyc, dyd); dd from the d-row
+                # (hiopKKTLinSys.cpp:620,670): ryd_t = ryd + Dd_tot^{-1} rd_t,
+                # dd = Dd_tot^{-1} (rd_t + dyd)
+                dd_inv = kkt_nd._pos_inv((self._Dd + self.perturb.delta_wd).to(rd_t.dtype))
+                ryd_t = ryd + dd_inv * rd_t
+                dx, dyc, dyd = kkt_nd.solve_xycyd_safe(f, rx_t, ryc, ryd_t)
+                dd = dd_inv * (rd_t.to(dyd.dtype) + dyd)
+                out = (dx, dd, dyc, dyd)
+            elif isinstance(f, kkt_nd.DeviceLdlFactors):
+                out = kkt_nd.solve_safe_device(f, rx_t, rd_t, ryc, ryd)
+            else:
+                out = kkt_nd.solve_safe(f, rx_t, rd_t, ryc, ryd)
+        else:
+            out = kkt_nd.solve_quick(f, rx_t, rd_t, ryc, ryd)
+        if mixed:
+            out = tuple(a.to(torch.float64) for a in out)
+        return out
+
+    def _factorization_acceptable(self, f):
+        """Returns (acceptable, singular)."""
+        if self._safe_mode:
+            if not bool(f.ok):
+                # host LU: a non-finite factor means wrong inertia. Device
+                # no-pivot LDL^T: a breakdown is ambiguous between a
+                # singular Jacobian and wrong inertia; the singularity
+                # handler bumps delta_c first and falls through to the
+                # delta_w curve on repeats (the reference's handling of a
+                # MAGMA-Nopiv zero pivot)
+                return False, isinstance(
+                    f, (kkt_nd.DeviceLdlFactors, kkt_nd.XycydDeviceLdlFactors)
+                )
+            n_neg = int(f.n_neg_eig)
+            if n_neg < 0:
+                return False, True
+            if self.inertia_free:
+                return True, False
+            if n_neg != f.mc + f.md:
+                # highly degenerate systems can defeat the floating-point
+                # inertia count; after three mismatches the inertia-free
+                # curvature acceptor takes over
+                self._inertia_mismatches += 1
+                if self._inertia_mismatches >= 3:
+                    self.log.printf(
+                        Verbosity.SCALARS,
+                        "inertia count unreliable (%d != %d); switching to the "
+                        "inertia-free curvature test", n_neg, f.mc + f.md,
+                    )
+                    self.inertia_free = True
+                    return True, False
+                return False, False
+            return True, False
+        if self.kkt_kind == "full":
+            # nonsymmetric LU: a failure can only mean (near-)singularity
+            return (True, False) if bool(f.ok) else (False, True)
+        if self.kkt_kind in ("condensed", "normaleqn"):
+            # one SPD factorization: a failure means wrong curvature
+            return bool(f.ok), False
+        # quick tier: the Hessian-block Cholesky failing means wrong inertia
+        # (bump delta_w); the Schur Cholesky failing a singular Jacobian
+        # (bump delta_c). One synchronization for both flags.
+        ok_k, ok_s = torch.stack([f.ok_k, f.ok_s]).tolist()
+        if not ok_k:
+            return False, False
+        if not ok_s:
+            return False, True
+        return True, False
+
+    def _mp_safe_f32_device(self) -> bool:
+        """f32 safe-tier factorizations only on the device no-pivot LDL^T
+        tier (the host tiers are f64 by nature)."""
+        return (
+            self._safe_mode > 0
+            and self._safe_tiers[self._safe_mode - 1] == "ldl_nopiv"
+        )
+
+    def _curvature_ok(self, dx, dd) -> bool:
+        p = self.perturb
+        return bool(kkt_nd.curvature_test(
+            self._H, self._Dx, self._Dd, p.delta_wx, p.delta_wd, dx, dd, self.neg_curv_fact,
+        ))
+
+    def compute_direction(self, resid, it: Iterate, b: Bounds):
+        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
+        n_correction = 0
+        for _ in range(self.MAX_REFACT):
+            f = self._factorize()
+            acceptable, singular = self._factorization_acceptable(f)
+            if not acceptable and self._safe_mode and self.fact_dtype == torch.float32:
+                # f32 pivot signs are not trusted through a rejection: redo
+                # this direction in f64 with the deltas unchanged
+                _mp_demote(self, "f32 safe-tier factorization rejected")
+                continue
+            if not acceptable:
+                n_correction += 1
+                self.stats.kkt.n_update_corrections = n_correction
+                ok = (
+                    self.perturb.compute_perturb_singularity()
+                    if singular
+                    else self.perturb.compute_perturb_wrong_inertia()
+                )
+                if not ok:
+                    if (
+                        self._safe_mode < len(self._safe_tiers)
+                        and self.kkt_kind in ("xdycyd", "xycyd")
+                        and self.linsol_mode != "forcequick"
+                    ):
+                        self._safe_mode += 1
+                        self.log.printf(
+                            Verbosity.SCALARS,
+                            "KKT: switching to safe mode (%s)",
+                            self._safe_tiers[self._safe_mode - 1],
+                        )
+                        self.perturb.compute_initial_deltas()
+                        continue
+                    raise _StepComputationError("regularization exhausted")
+                continue
+            self._factors = f
+            with self.stats.kkt.tm_solve_inner:
+                if self.kkt_kind == "full":
+                    dir_full = kkt_full.solve_full(f, resid)
+                    dx, dd = dir_full.x, dir_full.d
+                else:
+                    dir_full = None
+                    dx, dd, dyc, dyd = self._solve_factors(f, rx_t, rd_t, ryc, ryd)
+                    if self.fact_dtype != torch.float64 and self.kkt_kind in ("xdycyd", "xycyd"):
+                        was_f32 = self.fact_dtype == torch.float32
+                        dx, dd, dyc, dyd = self._inner_refine(
+                            f, (rx_t, rd_t, ryc, ryd), (dx, dd, dyc, dyd)
+                        )
+                        if was_f32 and self.fact_dtype == torch.float64:
+                            # certification failed and the schedule demoted:
+                            # redo this factorization in f64 rather than use
+                            # the uncertified direction
+                            n_correction += 1
+                            self.stats.kkt.n_update_corrections = n_correction
+                            continue
+            if (
+                not self.inertia_free
+                and self._safe_mode
+                and self.fact_dtype == torch.float32
+            ):
+                # f32 pivot signs can flip on near-zero pivots and falsely
+                # report the right inertia: cross-check the accepted f32
+                # safe-tier factorization with the curvature test
+                if not self._curvature_ok(dx, dd):
+                    n_correction += 1
+                    self.stats.kkt.n_update_corrections = n_correction
+                    if not self.perturb.compute_perturb_wrong_inertia():
+                        raise _StepComputationError(
+                            "f32 curvature cross-check regularization exhausted"
+                        )
+                    continue
+            if self.inertia_free and not self._curvature_ok(dx, dd):
+                n_correction += 1
+                self.stats.kkt.n_update_corrections = n_correction
+                if not self.perturb.compute_perturb_wrong_inertia():
+                    raise _StepComputationError("curvature regularization exhausted")
+                continue
+            self.perturb.update_fact_ok()
+            if dir_full is not None:
+                dir_ = dir_full
+            else:
+                dir_ = res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd)
+            dir_ = self._maybe_refine(resid, it, b, dir_)
+            return dir_, True
+        raise _StepComputationError("max refactorizations reached")
+
+    def _inner_refine(self, f, rhs4, sol4):
+        """FGMRES inner refinement of the mixed-precision compressed solve:
+        the f64 XDYcYd operator is the matvec, the f32 factorization the
+        flexible right preconditioner (the ReSolve FGMRES-IR pattern,
+        ReSolve/IterativeRefinement.hpp:25), driven by the ir_inner_*
+        options."""
+        o = self.nlp.options
+        maxit = o.integer("ir_inner_maxit")
+        if maxit <= 0:
+            return sol4
+        p = self.perturb
+        deltas = (p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd)
+        H, Dx, Dd, Jc, Jd = self._H, self._Dx, self._Dd, self._Jc, self._Jd
+
+        def matvec(v):
+            return kkt_nd.xdycyd_matvec(H, Dx, Dd, Jc, Jd, *deltas, *v)
+
+        def precond(v):
+            return self._solve_factors(f, *v)
+
+        tol = max(o.num("ir_inner_tol"), o.num("ir_inner_tol_factor") * self._mu)
+        refined, info = krylov.fgmres(
+            matvec, rhs4, M_inv=precond, x0=sol4, tol=tol,
+            restart=o.integer("ir_inner_restart"), maxit=maxit,
+            gs_scheme=o.str_("ir_inner_gs_scheme"),
+        )
+        self.stats.kkt.n_iter_refin_inner += info.iters
+        if self._mp_schedule == "adaptive" and not info.converged:
+            # the f32 factorization stopped being a good enough
+            # preconditioner for the f64 system at this conditioning
+            _mp_demote(self, "inner FGMRES-IR did not converge")
+        return refined if info.converged or info.iters > 0 else sol4
+
+    def _maybe_refine(self, resid, it: Iterate, b: Bounds, dir_: Iterate) -> Iterate:
+        """Outer BiCGStab refinement over the full 12-block KKT operator,
+        preconditioned by the compressed direct solve
+        (compute_directions_w_IR, hiopKKTLinSys.cpp:911-956)."""
+        if self.ir_maxit <= 0:
+            return dir_
+        p = self.perturb
+        deltas = (p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd)
+        with self.stats.kkt.tm_resid:
+            rn, bn = kkt_full.direction_residual_norms(
+                self._H, self._Jc, self._Jd, it, b, *deltas, resid, dir_
+            )
+            res_norm, rhs_norm = torch.stack([rn, bn]).tolist()
+            rhs_norm = max(rhs_norm, 1e-300)
+        tol = max(self.ir_tol_min, self.ir_tol_factor * self._mu)
+        if res_norm <= tol * rhs_norm:
+            return dir_
+        rhs = kkt_full.residual_to_rhs(resid)
+
+        def matvec(d):
+            return kkt_full.full_kkt_matvec(self._H, self._Jc, self._Jd, it, b, *deltas, Iterate(*d))
+
+        def precond(v):
+            v = Residual(*v)
+            res_v = v._replace(rxl=-v.rxl, rxu=-v.rxu, rdl=-v.rdl, rdu=-v.rdu)
+            return self.solve_rhs(res_v, it, b)
+
+        refined, info = krylov.bicgstab(
+            matvec, rhs, M_inv=precond, x0=dir_, tol=tol, maxit=self.ir_maxit
+        )
+        self.stats.kkt.n_iter_refin_outer += info.iters
+        if not info.converged and info.resid_norm > res_norm:
+            return dir_  # refinement diverged; keep the direct solution
+        return Iterate(*refined)
+
+    def solve_rhs(self, resid, it: Iterate, b: Bounds) -> Iterate:
+        if self.kkt_kind == "full":
+            return kkt_full.solve_full(self._factors, resid)
+        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
+        dx, dd, dyc, dyd = self._solve_factors(self._factors, rx_t, rd_t, ryc, ryd)
+        return res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd)
 
 
 class _MdsStrategy:
@@ -1113,23 +1533,29 @@ class FilterIPMBase:
 
 
 class FilterIPMQuasiNewton(FilterIPMBase):
-    """IPM with limited-memory BFGS Hessian (hiopAlgFilterIPMQuasiNewton,
-    hpp:349): not ported yet."""
+    """IPM with a limited-memory BFGS Hessian for dense-constrained NLPs
+    (hiopAlgFilterIPMQuasiNewton, hpp:349). Always in "safe mode"
+    (cpp:1085); the KKT system is the low-rank Schur solve."""
 
-    def __init__(self, nlp: NlpFormulation):
-        raise _not_ported("FilterIPMQuasiNewton", "item 10: the QN path")
+    def _make_strategy(self):
+        return _LowRankStrategy(self.nlp)
 
 
 class FilterIPMNewton(FilterIPMBase):
-    """IPM with exact second order (hiopAlgFilterIPMNewton, hpp:446). This
-    slice takes MDS formulations (:class:`~hiop_tpu_torch.formulation.mds.NlpMDS`)."""
+    """IPM with exact second order (hiopAlgFilterIPMNewton, hpp:446). MDS
+    formulations take :class:`_MdsStrategy`, dense-constrained ones
+    :class:`_NewtonDenseStrategy` (decideAndCreateLinearSystem,
+    cpp:1848-1901); the sparse KKT classes are not ported yet."""
 
     def _make_strategy(self):
+        from hiop_tpu_torch.formulation.dense import NlpDenseConstraints
         from hiop_tpu_torch.formulation.mds import NlpMDS
 
         if isinstance(self.nlp, NlpMDS):
             return _MdsStrategy(self.nlp, self.log, self.nlp.runstats)
+        if isinstance(self.nlp, NlpDenseConstraints):
+            return _NewtonDenseStrategy(self.nlp, self.log, self.nlp.runstats)
         raise _not_ported(
             f"FilterIPMNewton over {type(self.nlp).__name__}",
-            "items 9 and 11: dense and sparse KKT classes",
+            "item 11: sparse and remaining KKT classes",
         )

@@ -226,3 +226,57 @@ def test_cuda_factors_repeat_bitwise(cuda_device, dtype):
     M = torch.from_numpy(_saddle(600, 2)).to(dtype).to(cuda_device)
     (L1, d1), (L2, d2) = tldl.ldl_nopiv(M), tldl.ldl_nopiv(M)
     assert torch.equal(L1, L2) and torch.equal(d1, d2)
+
+
+def _dense_kkt(n, mc, md, seed):
+    """Seeded dense Newton KKT operands: an SPD Hessian block, barrier
+    diagonals, dense Jacobians, and a right-hand side."""
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((n, n))
+    H = G @ G.T / n + np.eye(n)
+    ops = [H, np.abs(rng.standard_normal(n)), np.abs(rng.standard_normal(md)) + 0.1,
+           rng.standard_normal((mc, n)), rng.standard_normal((md, n))]
+    rhs = [rng.standard_normal(k) for k in (n, md, mc, md)]
+    return [torch.from_numpy(a) for a in ops], [torch.from_numpy(r) for r in rhs]
+
+
+@pytest.mark.gpu
+def test_cuda_dense_newton_tiers_match_plain(cuda_device):
+    """The dense Newton tiers at DenseConsEx2's constraint shape on the card
+    against their CPU runs (the plain versions): the quick tier's Cholesky
+    of K at 1000^2, the device safe tier's LDL^T of the 1007 saddle."""
+    from hiop_tpu_torch.kkt import newton_dense as nd
+
+    ops, rhs = _dense_kkt(1000, 1, 3, 5)
+    deltas = (0.0, 0.0, 0.0, 0.0)
+    dops, drhs = [a.to(cuda_device) for a in ops], [r.to(cuda_device) for r in rhs]
+    before = dict(kernels.stats.sizes)
+    fq, fq0 = nd.factorize_quick(*dops, *deltas), nd.factorize_quick(*ops, *deltas)
+    assert bool(fq.ok) and bool(fq0.ok)
+    for a, b in zip(nd.solve_quick(fq, *drhs), nd.solve_quick(fq0, *rhs)):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) < 1e-9
+    fs, fs0 = nd.factorize_safe_device(*dops, *deltas), nd.factorize_safe_device(*ops, *deltas)
+    assert bool(fs.ok) and int(fs.n_neg_eig) == int(fs0.n_neg_eig) == 4
+    for a, b in zip(nd.solve_safe_device(fs, *drhs), nd.solve_safe_device(fs0, *rhs)):
+        assert float((a.cpu() - b).abs().max() / b.abs().max()) < 1e-9
+    after = kernels.stats.sizes
+    assert after[("cholesky", 1000, "float64")] > before.get(("cholesky", 1000, "float64"), 0)
+    assert after[("ldl_nopiv", 1024, "float64")] > before.get(("ldl_nopiv", 1024, "float64"), 0)
+
+
+@pytest.mark.gpu
+def test_cuda_dense_examples_reach_their_saved_objectives(cuda_device):
+    """The quasi-Newton dense_ex1 at n=5000 and the exact-Newton DenseConsEx2
+    at n=500 on cuda:0, at their saved objectives, through the Cholesky
+    kernel."""
+    from hiop_tpu_torch.examples import dense_ex1, dense_ex2
+
+    kernels.stats.reset()
+    r = dense_ex1.solve(5000, verbosity_level=0)
+    ref, tol = dense_ex1.SELFCHECK[5000]
+    assert r.status.is_success and dense_ex1.selfcheck_ok(r.obj, ref, tol)
+    assert kernels.stats.sizes[("cholesky", 1, "float64")] > 0
+    r = dense_ex2.solve_newton(500, verbosity_level=0)
+    ref, tol = dense_ex2.SELFCHECK[500]
+    assert r.status.is_success and dense_ex2.selfcheck_ok(r.obj, ref, tol)
+    assert kernels.stats.sizes[("cholesky", 500, "float64")] > 0

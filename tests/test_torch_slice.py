@@ -21,8 +21,8 @@ import examples.acopf_mds as jax_acopf
 import examples.mds_ex1 as jax_ex1
 import hiop_tpu.native.ldl as jax_native_ldl
 import hiop_tpu_torch.native.ldl as torch_native_ldl
-from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpMDS, NlpOptions
-from hiop_tpu_torch.examples import acopf_mds, mds_ex1
+from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpDenseConstraints, NlpMDS, NlpOptions
+from hiop_tpu_torch.examples import acopf_mds, dense_ex3, mds_ex1
 from hiop_tpu_torch.formulation.base import NlpFormulation
 from hiop_tpu_torch.linalg import ldl_blocked
 
@@ -125,9 +125,11 @@ def test_unported_options_raise(opts):
 
 def test_unported_solvers_and_formulations_raise():
     o = NlpOptions()
-    o.update(compute_mode="cpu", verbosity_level=0)
+    o.update(compute_mode="cpu", verbosity_level=0, fixed_var="remove")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FilterIPMQuasiNewton(NlpMDS(mds_ex1.MdsEx1(8, 4), o))
+        FilterIPMQuasiNewton(NlpDenseConstraints(dense_ex3.DenseConsEx3(8), o))
+    o = NlpOptions()
+    o.update(compute_mode="cpu", verbosity_level=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FilterIPMNewton(NlpFormulation(mds_ex1.MdsEx1(8, 4), o)).run()
 
