@@ -61,12 +61,36 @@ the script exits nonzero):
     negative-pivot count of each accepted factorization beside m_c + m_d,
     and whether the three-mismatch switch to the curvature test fired;
 13. the same as 11 with ``kkt_fact_dtype=float32``: the f32 Cholesky at
-    n^2, the f32 fraction, the demotions and the inner FGMRES iterations.
+    n^2, the f32 fraction, the demotions and the inner FGMRES iterations;
+14. forced feasibility restoration (``force_resto=yes``), ACOPF B=32 f64 to
+    convergence at ``SELFCHECK[32]``: the nested FR solve (an ``NlpMDS``
+    over the MDS FR problem) runs the Cholesky kernel; prints the nested
+    iterations, the nested tiers, whether a soft restoration ran, and the
+    kernel launches inside the nested solve;
+15. forced restoration at full width, ACOPF B=512 capped at
+    ``B512_MAX_ITER``: inside the nested solve (n = 14 438, m = 4608) the
+    Cholesky of S at 4608^2, the device LDL^T at 4736^2 if a device safe
+    tier runs, and the f32 matrix-free LSQ initialization (its Jacobian has
+    6.65e7 entries); prints the nested s/iter, the peak memory and whether
+    the restoration was accepted within the cap; then the same with the
+    nested solve pinned to the device LDL^T tier, which must launch the
+    LDL^T of the 4710 saddle (padded to 4736) inside the nested solve;
+16. forced restoration on the dense paths: quasi-Newton ``dense_ex1`` at
+    n = ``QN_N`` at its saved objective, and exact-Newton ``dense_ex2`` at
+    n = ``NEWTON_N`` at ``SELFCHECK[NEWTON_N]``, whose nested solve
+    factorizes K at (n + 2m)^2 = 5008^2;
+17. checkpoints, ``write_kkt`` and ``deepchecks`` on mds_ex1 400/100: a
+    solve that saves every 2 iterations and stops at 5, resumed from its
+    file, gives the same bits as the uninterrupted solve; three iterations
+    with ``write_kkt`` write three dumps; ``deepchecks`` gives the same bits
+    as phase 4. Files go under ``build/chip_smoke/`` in the checkout.
 
 Each main-path phase sets the launch counts to zero just before each solve
-and reads them just after. The last three lines of standard output are the
-``kernels`` JSON line, the ``nvidia-smi`` name/power-limit line, and
-``{"ok": true, "device": {...}}``.
+and reads them just after; phases 14-16 also read them around each nested
+FR solve (``fr_path_launches`` in the ``kernels`` line) and time the
+kernels there (``fr_path_kernel_ms``). The last three lines of
+standard output are the ``kernels`` JSON line, the ``nvidia-smi``
+name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -111,6 +135,11 @@ QN_N = 50000
 
 #: phases 11-13: the dense exact-Newton size (a 5000^2 f64 Hessian, 200 MB)
 NEWTON_N = 5000
+
+#: phase 15: the full-width ACOPF size of the forced restoration (m = 9 B
+#: constraints, n_d = max(4, B // 5) dense variables; the nested FR problem
+#: has n = 10 B + n_d + 2 m variables)
+FULL_B = 512
 
 
 def _log(*a) -> None:
@@ -662,6 +691,238 @@ def _mp_log(filter_ipm, krylov):
         filter_ipm.kkt_mds.factorize_safe = safe
 
 
+@contextlib.contextmanager
+def _fr_log(torch, filter_ipm, K):
+    """Record the restorations of a solve: each soft restoration
+    (iteration, accepted); per nested FR solve its iterations, status,
+    acceptance, wall time and kernel launches by size; the slot and dtype
+    of each factorization inside a nested solve; and the dtype and shape
+    (rows, columns) of each matrix-free LSQ solve. With ``K.stats.timing``
+    on, also the summed kernel milliseconds inside each nested solve."""
+    from hiop_tpu_torch.optimization import duals_update as du
+    from hiop_tpu_torch.optimization import fr_problem as frm
+
+    log = {"soft": [], "full": [], "nested_fact": [], "matfree": []}
+    apply, soft, matfree = frm.apply_feasibility_restoration, filter_ipm.FilterIPMBase._solve_soft_fr, \
+        du.lsq_duals_matfree
+    S_mds, S_dense = filter_ipm._MdsStrategy, filter_ipm._NewtonDenseStrategy
+    facts = {S: S._factorize for S in (S_mds, S_dense)}
+
+    def sync():
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+    def applied(solver, *a, **k):
+        sync()
+        before, ev0, t0 = dict(K.stats.sizes), len(K.stats.events), time.perf_counter()
+        out = apply(solver, *a, **k)
+        sync()
+        wall = time.perf_counter() - t0
+        kernel_ms: dict = {}
+        for name, n, dname, start, end in K.stats.events[ev0:]:
+            key = f"{name}:{n}:{dname}"
+            kernel_ms[key] = kernel_ms.get(key, 0.0) + start.elapsed_time(end)
+        log["full"].append(dict(
+            iteration=solver.iter_num, nested_iterations=solver.last_fr["iterations"],
+            status=solver.last_fr["status"].name, accepted=out is not None, wall=wall,
+            launches={f"{key[0]}:{key[1]}:{key[2]}": v - before.get(key, 0)
+                      for key, v in sorted(K.stats.sizes.items()) if v > before.get(key, 0)},
+            kernel_ms=kernel_ms))
+        return out
+
+    def softened(self, *a, **k):
+        out = soft(self, *a, **k)
+        log["soft"].append((self.iter_num, out is not None))
+        return out
+
+    def tagged(S):
+        def fact(self):
+            if isinstance(self.nlp.problem, frm.FeasibilityRestorationProblem):
+                slot = self._safe_tiers[self._safe_mode - 1] if self._safe_mode else "quick"
+                log["nested_fact"].append(f"{slot}-{'f32' if self.fact_dtype == torch.float32 else 'f64'}")
+            return facts[S](self)
+        return fact
+
+    def counted(Jc, Jd, *a, **k):
+        log["matfree"].append((str(Jc.dtype).replace("torch.", ""), Jc.shape[0] + Jd.shape[0], Jc.shape[1]))
+        return matfree(Jc, Jd, *a, **k)
+
+    frm.apply_feasibility_restoration, filter_ipm.FilterIPMBase._solve_soft_fr = applied, softened
+    du.lsq_duals_matfree = counted
+    for S in facts:
+        S._factorize = tagged(S)
+    try:
+        yield log
+    finally:
+        frm.apply_feasibility_restoration, filter_ipm.FilterIPMBase._solve_soft_fr = apply, soft
+        du.lsq_duals_matfree = matfree
+        for S, f in facts.items():
+            S._factorize = f
+
+
+@contextlib.contextmanager
+def _nested_on_device_safe_tier(filter_ipm):
+    """Start every nested FR solve's MDS strategy in the device LDL^T safe
+    tier (its ladder's ``ldl_nopiv`` slot)."""
+    from hiop_tpu_torch.optimization import fr_problem as frm
+
+    S = filter_ipm._MdsStrategy
+    init = S.__init__
+
+    def pinned(self, nlp, *a, **k):
+        init(self, nlp, *a, **k)
+        if isinstance(nlp.problem, frm.FeasibilityRestorationProblem):
+            self._safe_mode = self._safe_tiers.index("ldl_nopiv") + 1
+
+    S.__init__ = pinned
+    try:
+        yield
+    finally:
+        S.__init__ = init
+
+
+def _fr_report(name: str, log) -> dict:
+    """Print what the restorations of one solve did; returns the kernel
+    launches inside its nested solves, by size."""
+    launches: dict = {}
+    for f in log["full"]:
+        for key, v in f["launches"].items():
+            launches[key] = launches.get(key, 0) + v
+        _log(f"  {name}: nested FR solve at iteration {f['iteration']}: {f['status']} after "
+             f"{f['nested_iterations']} nested iterations, accepted {f['accepted']}, "
+             f"{f['wall']:.3f} s ({f['wall'] / max(f['nested_iterations'], 1):.4f} s per nested "
+             f"iteration), launches inside it {f['launches']}"
+             + (f", kernel ms inside it {({k: round(v, 3) for k, v in f['kernel_ms'].items()})}"
+                if f["kernel_ms"] else ""))
+    _log(f"  {name}: soft restorations (iteration, accepted) {log['soft']}; nested factorizations "
+         f"in order: {_runs(log['nested_fact'])}; matrix-free LSQ solves (dtype, rows, columns) "
+         f"{log['matfree']}")
+    return launches
+
+
+def phase_restoration(torch) -> dict:
+    """Phases 14-16: forced feasibility restoration on the MDS and dense
+    paths. Returns, by phase, the kernel launches inside the nested solves
+    and their summed kernel milliseconds (CUDA events per launch), by size."""
+    from hiop_tpu_torch.examples import acopf_mds, dense_ex1, dense_ex2
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.optimization import filter_ipm
+
+    out = {}
+
+    def forced(name, run, need, nested_need):
+        K.stats.timing = True
+        with _fr_log(torch, filter_ipm, K) as log:
+            r, wall, _, sizes = _solve_phase(torch, name, run, need)
+        K.stats.timing = False
+        launches = _fr_report(name, log)
+        _check(log["full"], f"{name}: no nested FR solve ran")
+        for key, why in nested_need.items():
+            _check(launches.get(key, 0) > 0, f"{name}: no launch {key} inside the nested solve ({why})")
+        kernel_ms: dict = {}
+        for f in log["full"]:
+            for key, v in f["kernel_ms"].items():
+                kernel_ms[key] = kernel_ms.get(key, 0.0) + v
+        out[name] = dict(launches=launches, kernel_ms=kernel_ms)
+        return r, wall, log, launches
+
+    _log("[14] forced restoration: ACOPF B=32 f64, force_resto=yes, to convergence")
+    r, _, _, _ = forced("acopf B=32 FR", lambda: acopf_mds.solve(32, verbosity_level=0, force_resto="yes"),
+                        {"cholesky": "quick tier"}, {"cholesky:288:float64": "the nested quick tier's S"})
+    ref, tol = acopf_mds.SELFCHECK[32]
+    _check(r.status.is_success, f"acopf B=32 FR: status {r.status.name}")
+    _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)), f"acopf B=32 FR: obj {r.obj!r} vs saved {ref!r}")
+
+    m = 9 * FULL_B
+    n_d = max(4, FULL_B // 5)
+    n_fr, saddle = 10 * FULL_B + n_d + 2 * m, (n_d + m + 127) // 128 * 128
+    name = f"acopf B={FULL_B} FR"
+    _log(f"[15] forced restoration at full width: ACOPF B={FULL_B} (nested n = {n_fr}, m = {m}), "
+         f"capped at max_iter={B512_MAX_ITER}")
+    torch.cuda.reset_peak_memory_stats()
+    r, wall, log, launches = forced(
+        name, lambda: acopf_mds.solve(FULL_B, verbosity_level=0, force_resto="yes", max_iter=B512_MAX_ITER),
+        {"cholesky": "quick tier"}, {f"cholesky:{m}:float64": "the nested quick tier's S"})
+    if any(t.startswith("ldl_nopiv") for t in log["nested_fact"]):
+        _check(launches.get(f"ldl_nopiv:{saddle}:float64", 0) > 0,
+               f"{name}: a device safe tier ran in the nested solve without an LDL^T at {saddle}")
+    _check(("float32", m, n_fr) in log["matfree"],
+           f"{name}: the nested solve's LSQ initialization did not take the f32 matrix-free branch")
+    _check(r.obj == r.obj and abs(r.obj) < float("inf"), f"{name}: objective {r.obj!r}")
+    _log(f"  {name}: {r.status.name} after {r.iterations} iterations, "
+         f"{wall / max(r.iterations, 1):.4f} s/iter over the whole solve; restoration accepted within "
+         f"the cap: {log['full'][0]['accepted']}; max_memory_allocated "
+         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+    # the same with the nested solve pinned to the device LDL^T safe tier
+    # from its first iteration (as phase 12 pins the dense one): the
+    # saddle's LDL^T inside the nested solve at full width
+    torch.cuda.reset_peak_memory_stats()
+    with _nested_on_device_safe_tier(filter_ipm):
+        r, wall, log, launches = forced(
+            name + ", nested device safe tier",
+            lambda: acopf_mds.solve(FULL_B, verbosity_level=0, force_resto="yes", max_iter=B512_MAX_ITER),
+            {"cholesky": "quick tier"}, {f"ldl_nopiv:{saddle}:float64": "the nested device safe tier"})
+    _log(f"  {name}, nested device safe tier: {r.status.name} after {r.iterations} iterations; "
+         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+
+    _log(f"[16] forced restoration on the dense paths: QN dense_ex1 n={QN_N}, Newton dense_ex2 n={NEWTON_N}")
+    r, _, _, _ = forced("dense_ex1 FR", lambda: dense_ex1.solve(QN_N, verbosity_level=0, force_resto="yes"),
+                        {"cholesky": "the low-rank KKT's m x m Schur system"}, {})
+    ref, tol = dense_ex1.SELFCHECK[QN_N]
+    _check(r.status.is_success, f"dense_ex1 FR: status {r.status.name}")
+    _check(dense_ex1.selfcheck_ok(r.obj, ref, tol), f"dense_ex1 FR: obj {r.obj!r} vs saved {ref!r}")
+    k = NEWTON_N + 2 * 4
+    r, _, _, _ = forced(
+        "dense newton FR", lambda: dense_ex2.solve_newton(NEWTON_N, verbosity_level=0, force_resto="yes"),
+        {"cholesky": "quick tier"}, {f"cholesky:{k}:float64": f"the nested quick tier's K at {k}^2"})
+    ref, tol = dense_ex2.SELFCHECK[NEWTON_N]
+    _check(r.status.is_success, f"dense newton FR: status {r.status.name}")
+    _check(dense_ex2.selfcheck_ok(r.obj, ref, tol), f"dense newton FR: obj {r.obj!r} vs saved {ref!r}")
+    return out
+
+
+def phase_aux(torch, phase4) -> None:
+    """Phase 17: checkpoint save and resume, write_kkt, deepchecks."""
+    from hiop_tpu_torch.examples import mds_ex1
+
+    d = os.path.join(HERE, "build", "chip_smoke")
+    os.makedirs(d, exist_ok=True)
+    path = os.path.join(d, "mds_ex1_state.npz")
+    if os.path.exists(path):
+        os.remove(path)
+
+    def run(name, **opts):
+        r, _, _, _ = _solve_phase(torch, name, lambda: mds_ex1.solve(400, 100, verbosity_level=0, **opts),
+                                  {"cholesky": "quick tier"})
+        return r
+
+    part = run("mds_ex1 checkpointed", max_iter=5, checkpoint_save="yes", checkpoint_save_every_N_iter=2,
+               checkpoint_file=path)
+    _check(part.iterations == 5 and os.path.exists(path), "checkpoint: no file after 5 iterations")
+    resumed = run("mds_ex1 resumed", checkpoint_load_on_start="yes", checkpoint_file=path)
+    same = (resumed.status == phase4.status and resumed.iterations + 4 == phase4.iterations
+            and resumed.obj == phase4.obj and resumed.x.tobytes() == phase4.x.tobytes())
+    _log(f"  checkpoint at iteration 4, resumed: {resumed.iterations} more iterations; the same bits as "
+         f"the uninterrupted solve (phase 4): {same}")
+    _check(same, "checkpoint: the resumed solve differs from the uninterrupted one")
+    cwd = os.getcwd()
+    for f in os.listdir(d):
+        if f.endswith(".npz") and "_kkt_iter" in f:
+            os.remove(os.path.join(d, f))
+    os.chdir(d)
+    try:
+        run("mds_ex1 write_kkt", write_kkt="yes", max_iter=3)
+    finally:
+        os.chdir(cwd)
+    dumps = sorted(f for f in os.listdir(d) if "_kkt_iter" in f)
+    _log(f"  write_kkt: {dumps}")
+    _check(len(dumps) == 3, f"write_kkt: {len(dumps)} dumps for 3 iterations")
+    checked = run("mds_ex1 deepchecks", deepchecks="yes")
+    same = checked.obj == phase4.obj and checked.x.tobytes() == phase4.x.tobytes()
+    _log(f"  deepchecks: the same bits as phase 4: {same}")
+    _check(same, "deepchecks changed the solve")
+
+
 def _why_rejected(torch, kkt_mds, rejected) -> str:
     """Which part of a rejected f32 device factorization's ``ok`` failed
     (a null K_s entry, a non-finite factor, pivots at or below
@@ -764,12 +1025,12 @@ def main() -> int:
     _log("[4] main path: mds_ex1 400/100")
     from hiop_tpu_torch.examples import acopf_mds, mds_ex1
 
-    r, _, _, _ = _solve_phase(
+    r4, _, _, _ = _solve_phase(
         torch, "mds_ex1", lambda: mds_ex1.solve(400, 100, verbosity_level=0),
         {"cholesky": "quick tier"})
-    _check(r.status.is_success, f"mds_ex1: status {r.status.name}")
-    _check(abs(r.obj - mds_ex1.SELFCHECK_OBJ) <= 1e-6,
-           f"mds_ex1: obj {r.obj!r} vs saved {mds_ex1.SELFCHECK_OBJ!r}")
+    _check(r4.status.is_success, f"mds_ex1: status {r4.status.name}")
+    _check(abs(r4.obj - mds_ex1.SELFCHECK_OBJ) <= 1e-6,
+           f"mds_ex1: obj {r4.obj!r} vs saved {mds_ex1.SELFCHECK_OBJ!r}")
 
     _log("[5] main path: ACOPF B=32, linear_solver_dense=auto")
     from hiop_tpu_torch.kkt import mds as kkt_mds
@@ -816,6 +1077,9 @@ def main() -> int:
     _log(f"[10] quasi-Newton: HiOp's dense examples at n={QN_N} through FilterIPMQuasiNewton")
     qn = phase_qn(torch)
     dense = phase_dense_newton(torch, dev)
+    fr = phase_restoration(torch)
+    _log("[17] checkpoints, write_kkt and deepchecks: mds_ex1 400/100")
+    phase_aux(torch, r4)
 
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
@@ -837,7 +1101,15 @@ def main() -> int:
                 shapes=[x for x in rows[name] if x["dtype"] == dname],
                 dense_path_launches={
                     phase: {k: v for k, v in sizes.items() if k.startswith(name + ":") and k.endswith(dname)}
-                    for phase, sizes in {**qn, **dense}.items() if isinstance(sizes, dict) and phase != "hessian"}))
+                    for phase, sizes in {**qn, **dense}.items() if isinstance(sizes, dict) and phase != "hessian"},
+                fr_path_launches={
+                    phase: {k: v for k, v in got["launches"].items()
+                            if k.startswith(name + ":") and k.endswith(dname)}
+                    for phase, got in fr.items()},
+                fr_path_kernel_ms={
+                    phase: {k: v for k, v in got["kernel_ms"].items()
+                            if k.startswith(name + ":") and k.endswith(dname)}
+                    for phase, got in fr.items() if got["kernel_ms"]}))
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -7,7 +7,10 @@ general loop: the Newton solver on mixed dense-sparse (MDS) and
 dense-constrained problems (every dense KKT class: XDYcYd, XYcYd,
 condensed, normal equations, full), and the quasi-Newton (L-BFGS) solver on
 dense-constrained problems, in f64 and in mixed precision
-(``kkt_fact_dtype=float32`` with f64 FGMRES refinement). Hand-written CUDA
+(``kkt_fact_dtype=float32`` with f64 FGMRES refinement), with the
+reference's robustness surface (soft and full feasibility restoration,
+elastic mode, ``fixed_var=remove``, checkpoints, ``write_kkt``,
+``deepchecks``). Hand-written CUDA
 kernels carry the blocked Cholesky (quick tiers, the low-rank KKT's Schur
 system) and the blocked no-pivot LDL^T (inertia-revealing safe tiers).
 

@@ -9,8 +9,7 @@ Counterpart of ``examples/dense_ex3.py``: fixed variables and corner cases,
         x_1 = 1.5 fixed (xl = xu = 1.5)
         x_2 >= 0; 1.5 <= x_3 <= 10
         x_i >= 0.5 (i >= 4), additionally x_i <= 0.5 (fixed) for i > 3n/4
-  x0 = 0, solved with option fixed_var=relax (``remove`` is not ported:
-  ROADMAP.md section 1, item 12).
+  x0 = 0. Exercised with option fixed_var in {'relax', 'remove'}.
 
 The saved objectives are ``hiop_tpu``'s table: the reference's
 (NlpDenseConsEx3Driver.cpp:147-148), except n=500, which is the

@@ -3,7 +3,8 @@
 Counterpart of ``hiop_tpu/formulation/base.py`` (reference
 hiopNlpFormulation, hiopNlpFormulation.hpp:97): splits constraints into
 equalities/inequalities, processes bounds (finite-bound patterns, bound
-relaxation, fixed-variable relaxation), applies gradient-based scaling,
+relaxation and its elastic-mode reset, fixed-variable relaxation or
+removal), applies gradient-based scaling,
 wraps user callbacks with counters, and owns options/logger/run-stats.
 
 The transformation pipeline runs once at construction time on host numpy;
@@ -89,15 +90,39 @@ class NlpFormulation:
             elif mode in ("none", "fixed"):
                 raise ValueError(
                     f"{self.n_fixed_vars} fixed variables detected; set option "
-                    "fixed_var to 'relax' (reference behavior)"
+                    "fixed_var to 'relax' or 'remove' (reference behavior)"
                 )
-            else:
-                raise NotImplementedError(
-                    "fixed_var=remove is not ported yet (ROADMAP.md section 1, "
-                    "item 12: formulation/transforms.py)"
+            elif mode == "remove":
+                # true removal (hiopFixedVarsRemover): wrap the problem in
+                # the reducing transform and re-run initialization on the
+                # reduced space (dense-Jacobian problems, as in the
+                # reference; others fall back to relaxation)
+                from hiop_tpu_torch.formulation.transforms import FixedVarsRemover
+
+                if hasattr(p, "eval_jac_cons"):
+                    self.problem = FixedVarsRemover(p, fixed, 0.5 * (xl + xu))
+                    self._fixed_remover = self.problem
+                    self.log.printf(
+                        Verbosity.SUMMARY,
+                        "%d fixed variables removed from the problem",
+                        self.n_fixed_vars,
+                    )
+                    return self.finalize_initialization()
+                pert = max(self.options.num("fixed_var_perturb"), 1e-12)
+                w = np.maximum(1.0, np.maximum(np.abs(xl), np.abs(xu)))
+                xl = np.where(fixed, xl - pert * w, xl)
+                xu = np.where(fixed, xu + pert * w, xu)
+                self.log.printf(
+                    Verbosity.WARNING,
+                    "fixed_var=remove supported for dense-Jacobian problems; "
+                    "falling back to relaxation",
                 )
 
         # --- bound relaxation (hiopBoundsRelaxer, bound_relax_perturb) -----
+        # keep the pristine bounds so elastic mode can re-relax with a
+        # different perturbation later (reset_bounds)
+        self._xl_pristine = xl.copy()
+        self._xu_pristine = xu.copy()
         brp = self.options.num("bound_relax_perturb")
         if brp > 0:
             xl = np.where(xl > -INF, xl - brp * np.maximum(1.0, np.abs(xl)), xl)
@@ -120,6 +145,8 @@ class NlpFormulation:
         crhs = cl[self.eq_idx]
         dl = cl[self.ineq_idx]
         du = cu[self.ineq_idx]
+        self._dl_pristine = dl.copy()
+        self._du_pristine = du.copy()
         if brp > 0 and self.m_ineq:
             dl = np.where(dl > -INF, dl - brp * np.maximum(1.0, np.abs(dl)), dl)
             du = np.where(du < INF, du + brp * np.maximum(1.0, np.abs(du)), du)
@@ -152,6 +179,29 @@ class NlpFormulation:
         self._set_scaling(1.0, np.ones(self.m))
         self._scaling_done = self.options.str_("scaling_type") == "none"
         self._finalized = True
+
+    def reset_bounds(self, perturb: float) -> None:
+        """Re-relax the pristine bounds with a new perturbation (elastic
+        mode; reference hiopNlpFormulation::reset_bounds used by
+        update_log_barrier_params). Rebuilds the device bound tensors; the
+        finite-bound patterns stay."""
+        xl = self._xl_pristine.copy()
+        xu = self._xu_pristine.copy()
+        dl = self._dl_pristine.copy()
+        du = self._du_pristine.copy()
+        if perturb > 0:
+            xl = np.where(xl > -INF, xl - perturb * np.maximum(1.0, np.abs(xl)), xl)
+            xu = np.where(xu < INF, xu + perturb * np.maximum(1.0, np.abs(xu)), xu)
+            dl = np.where(dl > -INF, dl - perturb * np.maximum(1.0, np.abs(dl)), dl)
+            du = np.where(du < INF, du + perturb * np.maximum(1.0, np.abs(du)), du)
+        b = self.bounds
+        place = self._place
+        self.bounds = b._replace(
+            xl=place(np.where(to_numpy(b.ixl) == 1.0, xl, 0.0)),
+            xu=place(np.where(to_numpy(b.ixu) == 1.0, xu, 0.0)),
+            dl=place(np.where(to_numpy(b.idl) == 1.0, dl, 0.0)),
+            du=place(np.where(to_numpy(b.idu) == 1.0, du, 0.0)),
+        )
 
     # --------------------------------------------------------------- scaling
     def _set_scaling(self, scale_obj: float, scale_cons: np.ndarray) -> None:

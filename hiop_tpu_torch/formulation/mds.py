@@ -101,6 +101,19 @@ class NlpMDS(NlpFormulation):
             dense_blk[self._ineq_idx_t, :],
         )
 
+    def eval_hess(self, x, obj_factor, yc, yd):
+        """Dense Lagrangian Hessian materialized from the MDS blocks
+        (diagonal sparse block + dense block), for consumers that need a
+        full Hessian of an MDS problem (the generic, dense-assembled
+        feasibility-restoration problem). O(n^2) memory; the MDS solver
+        never calls it."""
+        hss, hdd = self.eval_hess_blocks(x, obj_factor, yc, yd)
+        ns = self.n_sparse
+        H = hdd.new_zeros((self.n, self.n))
+        H[:ns, :ns] = torch.diag(hss)
+        H[ns:, ns:] = hdd
+        return H
+
     def eval_hess_blocks(self, x, obj_factor, yc, yd):
         """Returns (hss_diag, Hdd), scaled."""
         self.runstats.n_eval_hess += 1

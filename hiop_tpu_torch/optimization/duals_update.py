@@ -9,7 +9,9 @@ hiopDualsUpdater, hiopDualsUpdater.hpp:68,116). The LSQ update solves
 (doc hiopDualsUpdater.hpp:199-231) with a regularized Cholesky of the small
 m x m matrix. That factorization is a library call in both packages
 (XLA's potrf there, ``torch.linalg.cholesky_ex`` here); it is not one of
-the hand-written kernels.
+the hand-written kernels. For a Jacobian too large to form J J^T,
+:func:`lsq_duals_matfree` solves the same normal equations by CG
+(:func:`hiop_tpu_torch.linalg.krylov.pcg`) with Jacobian products only.
 """
 
 from __future__ import annotations
@@ -48,17 +50,60 @@ def lsq_duals(Jc, Jd, grad_f, zl, zu, vl, vu):
     return y[:mc], y[mc:]
 
 
+def lsq_duals_matfree(Jc, Jd, grad_f, zl, zu, vl, vu, tol=1e-10, maxit=200):
+    """LSQ duals via CG on the normal equations with Jacobian products only
+    (the reference's sparse augmented LSQ realization,
+    hiopDualsLsqUpdateLinsysAugSparse, hpp:357), never forming J J^T.
+    Runs in the dtype of its inputs."""
+    from hiop_tpu_torch.linalg import krylov
+
+    mc, md = Jc.shape[0], Jd.shape[0]
+    if mc + md == 0:
+        z = grad_f.new_zeros((0,))
+        return z, z.clone()
+    r1 = -grad_f + zl - zu
+    r2 = -vl + vu
+    empty = grad_f.new_zeros((0,))
+
+    def matvec(y):
+        yc, yd = y[:mc], y[mc:]
+        v = (Jc.T @ yc if mc else 0.0) + (Jd.T @ yd if md else 0.0)
+        top = Jc @ v if mc else empty
+        bot = (Jd @ v if md else empty) + yd
+        return torch.cat([top, bot])
+
+    rhs = torch.cat([
+        Jc @ r1 if mc else empty,
+        (Jd @ r1 if md else empty) + r2,
+    ])
+    y, _info = krylov.pcg(matvec, rhs, tol=tol, maxit=maxit)
+    return y[:mc], y[mc:]
+
+
+#: Jacobian entries above which the LSQ initialization runs the f32
+#: matrix-free CG instead of forming J J^T
+LSQ_DENSE_MAX_ENTRIES = 50_000_000
+
+
 def initial_duals_lsq(Jc, Jd, grad_f, zl, zu, vl, vu, lsq_max: float):
     """LSQ initialization with the duals_lsq_ini_max cap
     (compute_initial_duals_eq): falls back to zeros when the LSQ duals are
-    large (badly scaled problems)."""
-    if (Jc.shape[0] + Jd.shape[0]) * Jc.shape[1] > 50_000_000:
-        raise NotImplementedError(
-            "LSQ duals for a dense Jacobian above 5e7 entries need the "
-            "matrix-free CG realization (ROADMAP.md section 1, item 9: "
-            "linalg/krylov.py)"
+    large (badly scaled problems). Above ``LSQ_DENSE_MAX_ENTRIES`` Jacobian
+    entries it runs the matrix-free CG in f32 at ``tol=1e-6`` and casts
+    back: this is an initialization whose result is magnitude-capped
+    anyway, and J J^T of such a Jacobian costs more memory than the solve
+    proper (the feasibility-restoration NLP of ACOPF B=512 has a
+    4608 x 14 438 Jacobian)."""
+    if (Jc.shape[0] + Jd.shape[0]) * Jc.shape[1] > LSQ_DENSE_MAX_ENTRIES:
+        f32 = torch.float32
+        yc, yd = lsq_duals_matfree(
+            Jc.to(f32), Jd.to(f32), grad_f.to(f32),
+            zl.to(f32), zu.to(f32), vl.to(f32), vu.to(f32),
+            tol=1e-6,
         )
-    yc, yd = lsq_duals(Jc, Jd, grad_f, zl, zu, vl, vu)
+        yc, yd = yc.to(grad_f.dtype), yd.to(grad_f.dtype)
+    else:
+        yc, yd = lsq_duals(Jc, Jd, grad_f, zl, zu, vl, vu)
     ynrm = max(
         float(yc.abs().max()) if yc.numel() else 0.0,
         float(yd.abs().max()) if yd.numel() else 0.0,

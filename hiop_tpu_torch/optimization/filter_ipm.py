@@ -26,6 +26,13 @@ factorizations through the same kernels, each solve certified by f64
 FGMRES refinement (:mod:`hiop_tpu_torch.linalg.krylov`) under the
 ``mp_schedule`` policy, and on the card an f32 device LDL^T in the safe
 slots until the first rejection or failed certification demotes f32.
+
+A collapsed line search goes to the soft feasibility restoration on the
+existing factorization, then to the nested FR solve of
+:mod:`hiop_tpu_torch.optimization.fr_problem` on the same device (or
+``force_resto=yes`` forces it at iteration 1). The loop also carries
+elastic mode, checkpoints (:mod:`hiop_tpu_torch.utils.checkpoint`), the
+per-iteration KKT dumps of ``write_kkt`` and the ``deepchecks`` sanitizer.
 Options and paths that need modules not ported yet raise
 :class:`NotImplementedError` naming the ROADMAP.md item that will port
 them.
@@ -34,6 +41,7 @@ them.
 from __future__ import annotations
 
 import math
+import os
 from dataclasses import dataclass
 from typing import Optional
 
@@ -52,6 +60,7 @@ from hiop_tpu_torch.kkt import normal_eqn as kkt_ne
 from hiop_tpu_torch.linalg import krylov
 from hiop_tpu_torch.native import ldl as native_ldl
 from hiop_tpu_torch.optimization import duals_update as du
+from hiop_tpu_torch.optimization import fr_problem as fr_mod
 from hiop_tpu_torch.optimization import hessian_lowrank as blr
 from hiop_tpu_torch.optimization import iterate as it_mod
 from hiop_tpu_torch.optimization import residual as res_mod
@@ -60,6 +69,8 @@ from hiop_tpu_torch.optimization.iterate import Bounds, Iterate
 from hiop_tpu_torch.optimization.perturbation import make_perturbation
 from hiop_tpu_torch.optimization.residual import Residual
 from hiop_tpu_torch.status import SolveStatus
+from hiop_tpu_torch.utils import checkpoint as ckpt
+from hiop_tpu_torch.utils import kkt_io
 from hiop_tpu_torch.utils.logger import Verbosity
 
 
@@ -87,17 +98,11 @@ def _not_ported(what: str, item: str):
     )
 
 
-#: options whose non-default values need code this slice does not port
+#: options whose non-default values need code the port does not have yet
 _UNPORTED_OPTIONS = (
     ("jit_mode", ("iteration", "solve"), "jit_mode=iteration/solve", "item 13: fused modes"),
-    ("elastic_mode", ("tighten_bound", "correct_it", "correct_it_adjust_bound"),
-     "elastic_mode", "item 12: robustness"),
-    ("checkpoint_save", ("yes",), "checkpointing", "item 12: utils/checkpoint.py"),
-    ("checkpoint_load_on_start", ("yes",), "checkpointing", "item 12: utils/checkpoint.py"),
-    ("write_kkt", ("yes",), "write_kkt", "item 12: utils/kkt_io.py"),
-    ("deepchecks", ("yes",), "deepchecks", "item 12: the deepchecks option"),
-    ("force_resto", ("yes",), "feasibility restoration",
-     "item 12: optimization/fr_problem.py"),
+    ("checkpoint_format", ("orbax",), "checkpoint_format=orbax",
+     "item 15: sharded checkpoints through torch.distributed.checkpoint"),
 )
 
 
@@ -990,6 +995,13 @@ class FilterIPMBase:
     kappa_Sigma = 1e10
     kappa_d = 1e-5  # damping factor (hiopLogBarProblem kappa_d)
 
+    #: set on the nested solver of a feasibility-restoration phase: it takes
+    #: neither soft nor full restoration itself
+    within_fr = False
+    _force_resto_done = False
+    #: what the last nested FR solve did (``apply_feasibility_restoration``)
+    last_fr: Optional[dict] = None
+
     def __init__(self, nlp: NlpFormulation):
         self.nlp = nlp
         nlp.finalize_initialization()
@@ -1272,6 +1284,17 @@ class FilterIPMBase:
         self.theta_min = self.theta_min_fact * max(1.0, theta0)
         self.filter.reinitialize(self.theta_max)
 
+        # checkpoint restore (checkpoint_load_on_start, cpp:1001-1034)
+        ckpt_file = o.str_("checkpoint_file")
+        if o.str_("checkpoint_load_on_start") == "yes":
+            restored = self._try_restore_checkpoint(ckpt_file, strategy)
+            if restored is not None:
+                it_curr, mu = restored
+                tau = max(self.tau_min, 1.0 - mu)
+                f, c, d_eval, grad_f, Jc, Jd, resid, norms = self._evaluate_at(it_curr, b, mu)
+        ckpt_save = o.str_("checkpoint_save") == "yes"
+        ckpt_every = o.integer("checkpoint_save_every_N_iter")
+
         alpha_primal = alpha_dual = 0.0
         ls_status, ls_num, use_soc = -1, 0, 0
         disable_ls = o.str_("accept_every_trial_step") == "yes"
@@ -1302,6 +1325,9 @@ class FilterIPMBase:
                 f, float(norms.nlp_feasib), float(norms.nlp_optim), mu,
                 alpha_dual, alpha_primal, ls_num, ls_status, use_soc,
             )
+            # make checkpointing callable from inside the user callback
+            # (the reference's Ex1 saves sidre state from iterate_callback)
+            self._ckpt_ref = (it_curr, mu, strategy)
             f_host = float(f)
             # best-effort return point: an unrecoverable later failure
             # returns this iterate
@@ -1325,15 +1351,53 @@ class FilterIPMBase:
                 self.solver_status = term
                 break
 
+            # forced restoration for testing the FR machinery (force_resto,
+            # reference cpp:1384)
+            if (
+                o.str_("force_resto") == "yes"
+                and self.iter_num == 1
+                and not self.within_fr
+                and not self._force_resto_done
+            ):
+                self._force_resto_done = True
+                fr = fr_mod.apply_feasibility_restoration(self, it_curr, mu, norms)
+                if fr is not None:
+                    it_curr = it_curr._replace(x=fr["x"], d=fr["d"])
+                    it_curr, _ = it_mod.compute_safe_slacks(it_curr, it_curr, b, mu)
+                    f, c, d_eval, grad_f, Jc, Jd, resid, norms = self._evaluate_at(it_curr, b, mu)
+                    self.filter.reinitialize(self.theta_max)
+
             # ------------- mu update loop (cpp:1168) -----------------------
+            elastic_mode = o.str_("elastic_mode")
             while err_log <= self.kappa_eps * mu:
                 changed, mu, tau = self._update_mu(mu)
                 if not changed:
                     break
                 self.log.printf(Verbosity.SCALARS, "barrier params reduced: mu=%g tau=%g", mu, tau)
+                if elastic_mode != "none":
+                    # tighten the bound relaxation as mu decreases
+                    # (update_log_barrier_params elastic branch)
+                    brp_ini = o.num("elastic_mode_bound_relax_initial")
+                    brp_min = o.num("elastic_mode_bound_relax_final")
+                    if o.str_("elastic_bound_strategy") == "mu_scaled":
+                        brp = 0.995 * mu
+                    else:  # mu_projected
+                        brp = (mu - self.eps_tol) / max(self.mu0 - self.eps_tol, 1e-300) * (
+                            brp_ini - brp_min
+                        ) + brp_min
+                    brp = min(max(brp, brp_min), brp_ini)
+                    nlp.reset_bounds(brp)
+                    b = nlp.bounds
+                    if elastic_mode != "tighten_bound":
+                        it_curr, n_adj = it_mod.compute_safe_slacks(it_curr, it_curr, b, mu)
+                        if int(n_adj) > 0:
+                            it_curr = it_mod.adjust_duals(it_curr, b, mu, self.kappa_Sigma)
                 resid, norms = self._update_residual(it_curr, c, d_eval, grad_f, Jc, Jd, b, mu)
                 err_nlp, err_log, cons_viol = self._errors(it_curr, norms)
                 self.filter.reinitialize(self.theta_max)
+                if elastic_mode != "none":
+                    # reduce mu only once per iteration under elastic mode
+                    break
 
             # ------------- search direction --------------------------------
             stats.kkt.start_iter()
@@ -1342,6 +1406,18 @@ class FilterIPMBase:
                 dir_, _dir_ok = strategy.compute_direction(resid, it_curr, b)
             if o.str_("time_kkt") == "on":
                 self.log.printf(Verbosity.SUMMARY, "%s", stats.kkt.summary_last_iter())
+            if o.str_("write_kkt") == "yes":
+                Dx_dump, Dd_dump = res_mod.barrier_diagonals(it_curr, b)
+                kkt_io.dump_kkt(
+                    kkt_io.DUMP_PREFIX, self.iter_num,
+                    H=getattr(strategy, "_H", None), Dx=Dx_dump, Dd=Dd_dump,
+                    Jc=Jc, Jd=Jd,
+                    rx=resid.rx, rd=resid.rd, ryc=resid.ryc, ryd=resid.ryd,
+                    dx=dir_.x, dd=dir_.d, dyc=dir_.yc, dyd=dir_.yd,
+                    mu=np.asarray(mu),
+                )
+            if o.str_("deepchecks") == "yes":
+                self._deepchecks(it_curr, dir_, b)
 
             # ------------- line search -------------------------------------
             ap, ad = it_mod.fraction_to_the_boundary(it_curr, dir_, tau, b)
@@ -1411,17 +1487,61 @@ class FilterIPMBase:
                 alpha_primal *= 0.5
                 ini_step = False
 
+            use_fr = 0
             if small_step:
+                # attempt feasibility restoration (the QN solver is always in
+                # safe mode; cpp:1425)
                 if err_nlp <= self.accep_tol:
                     self.solver_status = SolveStatus.Solve_Acceptable_Level
                     break
-                raise _not_ported(
-                    "feasibility restoration (soft and full)",
-                    "item 12: optimization/fr_problem.py",
-                )
+                # soft FR first (apply_feasibility_restoration cpp:3046-3050):
+                # cheap retries on the existing factorization before the
+                # nested FR NLP solve
+                soft = None
+                if not self.within_fr:
+                    soft = self._solve_soft_fr(
+                        strategy, it_curr, resid, norms, dir_, b, mu, tau,
+                        c, d_eval, grad_f, Jc, Jd,
+                    )
+                if soft is not None:
+                    (it_trial, f_trial, c_trial, d_trial, theta_trial,
+                     phi_trial, alpha_soft) = soft
+                    self.log.printf(
+                        Verbosity.SCALARS,
+                        "soft feasibility restoration accepted (alpha=%g)",
+                        alpha_soft,
+                    )
+                    alpha_primal = alpha_dual = alpha_soft
+                    ls_status, ls_num, use_soc = 1, 0, 0
+                    self.iter_num += 1
+                    stats.n_iters = self.iter_num
+                    it_curr = it_trial
+                    f, c, d_eval = f_trial, c_trial, d_trial
+                    grad_f = nlp.eval_grad_f(it_curr.x)
+                    Jc, Jd = nlp.eval_jac(it_curr.x)
+                    resid, norms = self._update_residual(
+                        it_curr, c, d_eval, grad_f, Jc, Jd, b, mu
+                    )
+                    continue
+                fr = None
+                if not self.within_fr:
+                    fr = fr_mod.apply_feasibility_restoration(self, it_curr, mu, norms)
+                if fr is None:
+                    if self.solver_status != SolveStatus.Infeasible_Problem:
+                        self.solver_status = SolveStatus.Steplength_Too_Small
+                    break
+                use_fr = 1
+                it_trial = it_curr._replace(x=fr["x"], d=fr["d"])
+                it_trial, _ = it_mod.compute_safe_slacks(it_trial, it_curr, b, mu)
+                f_trial, c_trial, d_trial = self._eval_f_cons(it_trial.x)
+                theta_trial = self._theta_onenorm(it_trial, c_trial, d_trial)
+                phi_trial = self._logbar_f(it_trial, f_trial, b, mu)
+                ls_status, ls_num = 1, 0
 
-            # filter augmentation (cpp:1383-1420)
-            if ls_status == 1:
+            # filter augmentation (cpp:1383-1420); skipped after FR
+            if use_fr:
+                ls_status = 1
+            elif ls_status == 1:
                 if grad_phi_dx < 0 and alpha_primal * (-grad_phi_dx) ** self.s_phi > self.delta * theta_curr**self.s_theta:
                     if not (phi_trial <= phi_curr + self.eta_phi * alpha_primal * grad_phi_dx):
                         self.filter.add(theta_trial, phi_trial)
@@ -1434,10 +1554,36 @@ class FilterIPMBase:
             stats.n_iters = self.iter_num
 
             # ------------- dual update (dualsUpdate_->go) ------------------
+            infeas_nrm_trial = theta_trial
+            if use_fr:
+                # duals are reinitialized after restoration: bound duals from
+                # mu/slack, constraint duals from LSQ (the reference maps the
+                # FR problem's duals back; mu/slack is the same fixed point)
+                sxl = torch.where(b.ixl == 1.0, it_trial.sxl, 1.0)
+                sxu = torch.where(b.ixu == 1.0, it_trial.sxu, 1.0)
+                sdl = torch.where(b.idl == 1.0, it_trial.sdl, 1.0)
+                sdu = torch.where(b.idu == 1.0, it_trial.sdu, 1.0)
+                it_trial = it_trial._replace(
+                    zl=torch.where(b.ixl == 1.0, mu / sxl, 0.0),
+                    zu=torch.where(b.ixu == 1.0, mu / sxu, 0.0),
+                    vl=torch.where(b.idl == 1.0, mu / sdl, 0.0),
+                    vu=torch.where(b.idu == 1.0, mu / sdu, 0.0),
+                )
+                grad_f = nlp.eval_grad_f(it_trial.x)
+                Jc, Jd = nlp.eval_jac(it_trial.x)
+                yc_new, yd_new = du.initial_duals_lsq(
+                    Jc, Jd, grad_f, it_trial.zl, it_trial.zu,
+                    it_trial.vl, it_trial.vu, o.num("duals_lsq_ini_max"),
+                )
+                it_trial = it_trial._replace(yc=yc_new, yd=yd_new)
+                self.filter.reinitialize(self.theta_max)
+                it_curr = it_trial
+                f, c, d_eval = f_trial, c_trial, d_trial
+                resid, norms = self._update_residual(it_curr, c, d_eval, grad_f, Jc, Jd, b, mu)
+                continue
             # ordering mirrors hiopDualsLsqUpdate::go: step the duals,
             # safeguard the bound duals, THEN least-squares-recompute yc/yd
             # from the *old* derivatives (cpp:1463-1476)
-            infeas_nrm_trial = theta_trial
             it_trial = it_mod.take_step_duals(it_trial, dir_, alpha_primal, alpha_dual)
             it_trial = it_mod.adjust_duals(it_trial, b, mu, self.kappa_Sigma)
             if (
@@ -1455,6 +1601,10 @@ class FilterIPMBase:
             it_curr = it_trial
             f, c, d_eval = f_trial, c_trial, d_trial
             resid, norms = self._update_residual(it_curr, c, d_eval, grad_f, Jc, Jd, b, mu)
+
+            # periodic checkpoint (checkpointing_stuff, cpp:1152-1155)
+            if ckpt_save and self.iter_num % ckpt_every == 0:
+                self.save_state_to_file(ckpt_file, it_curr, mu, strategy)
 
         # ---------------- wrap up ------------------------------------------
         obj = nlp.unscaled_obj(f)
@@ -1480,6 +1630,15 @@ class FilterIPMBase:
         )
 
     # -------------------------------------------------------------- helpers
+    def _evaluate_at(self, it: Iterate, b: Bounds, mu):
+        """f, c, d, grad f, Jc, Jd, the residual and its norms at an iterate
+        the loop jumps to (a restored checkpoint, a restoration's point)."""
+        f, c, d_eval = self._eval_f_cons(it.x)
+        grad_f = self.nlp.eval_grad_f(it.x)
+        Jc, Jd = self.nlp.eval_jac(it.x)
+        resid, norms = self._update_residual(it, c, d_eval, grad_f, Jc, Jd, b, mu)
+        return f, c, d_eval, grad_f, Jc, Jd, resid, norms
+
     def _update_residual(self, it: Iterate, c, d_eval, grad_f, Jc, Jd, b: Bounds, mu):
         """Residual blocks on the device and their norms as host floats
         (one synchronization for all nine)."""
@@ -1530,6 +1689,145 @@ class FilterIPMBase:
                 )
             num_soc += 1
         return None
+
+    #: soft-FR limits, hardwired as in the reference
+    #: (solve_soft_feasibility_restoration, hiopAlgFilterIPM.cpp:3237-3238)
+    MAX_SOFT_FR_ITER = 10
+    KAPPA_F = 0.999
+
+    def _solve_soft_fr(
+        self, strategy, it_curr, resid, norms, dir_, b, mu, tau,
+        c, d_eval, grad_f, Jc, Jd,
+    ):
+        """Soft feasibility restoration (solve_soft_feasibility_restoration,
+        hiopAlgFilterIPM.cpp:3235): before posing the full FR NLP, re-use the
+        *existing* KKT factorization to step from successive trial points,
+        accepting when the one-norm barrier KKT error contracts by kappa_f
+        and the trial is not in the filter. Duals are updated inside (the
+        reference calls dualsUpdate_->go with equal primal/dual steps).
+        Returns (it_trial, f, c, d, theta, phi, alpha) or None."""
+        o = self.opts
+        kkt_err_curr = float(norms.bar_optim_onenorm + norms.nlp_feasib_onenorm)
+        soft_dir = dir_
+        it_trial = None
+        for num_soft in range(self.MAX_SOFT_FR_ITER):
+            if num_soft > 0:
+                # re-evaluate at the rejected trial, re-solve with the same
+                # factorization and the trial residual (cpp:3276-3282)
+                f_trial, c_trial, d_trial = self._eval_f_cons(it_trial.x)
+                res_trial, _ = self._update_residual(
+                    it_trial, c_trial, d_trial, grad_f, Jc, Jd, b, mu
+                )
+                try:
+                    soft_dir = strategy.solve_rhs(res_trial, it_curr, b)
+                except _StepComputationError:
+                    return None  # soft FR is best-effort: escalate to full FR
+            ap, ad = it_mod.fraction_to_the_boundary(it_curr, soft_dir, tau, b)
+            alpha = min(torch.stack([ap, ad]).tolist())  # cpp:3288 equalizes the steps
+            it_trial = it_mod.take_step_primals(it_curr, soft_dir, alpha)
+            it_trial, _ = it_mod.compute_safe_slacks(it_trial, it_curr, b, mu)
+            f_trial, c_trial, d_trial = self._eval_f_cons(it_trial.x)
+            it_trial = it_mod.take_step_duals(it_trial, soft_dir, alpha, alpha)
+            it_trial = it_mod.adjust_duals(it_trial, b, mu, self.kappa_Sigma)
+            theta_trial = self._theta_onenorm(it_trial, c_trial, d_trial)
+            if (
+                o.str_("duals_update_type") == "lsq"
+                and theta_trial <= o.num("recalc_lsq_duals_tol")
+                and Jc.shape[0] + Jd.shape[0] > 0
+            ):
+                yc_new, yd_new = du.lsq_duals(
+                    Jc, Jd, grad_f,
+                    it_trial.zl, it_trial.zu, it_trial.vl, it_trial.vu,
+                )
+                it_trial = it_trial._replace(yc=yc_new, yd=yd_new)
+            _, norms_t = self._update_residual(
+                it_trial, c_trial, d_trial, grad_f, Jc, Jd, b, mu
+            )
+            kkt_err_trial = float(norms_t.bar_optim_onenorm + norms_t.nlp_feasib_onenorm)
+            if kkt_err_trial > self.KAPPA_F * kkt_err_curr:
+                return None  # insufficient KKT-error reduction (cpp:3340)
+            phi_trial = self._logbar_f(it_trial, f_trial, b, mu)
+            if self.filter.contains(float(theta_trial), float(phi_trial)):
+                continue  # in the filter: reject, iterate again (cpp:3347)
+            return it_trial, f_trial, c_trial, d_trial, theta_trial, phi_trial, alpha
+        return None
+
+    # ------------------------------------------------------------ deepchecks
+    def _deepchecks(self, it_curr: Iterate, dir_: Iterate, b: Bounds) -> None:
+        """Runtime numerical sanitizer (HIOP_DEEPCHECKS semantics): direction
+        finiteness, slack positivity on-pattern, dual pattern matching. One
+        host synchronization for all the checks."""
+        checks = [(f"non-finite entries in direction {name}", torch.isfinite(getattr(dir_, name)).all())
+                  for name in Iterate._fields]
+        checks += [(f"non-positive slack {name} on pattern", torch.where(pat == 1.0, s > 0, True).all())
+                   for name, s, pat in (("sxl", it_curr.sxl, b.ixl), ("sxu", it_curr.sxu, b.ixu),
+                                        ("sdl", it_curr.sdl, b.idl), ("sdu", it_curr.sdu, b.idu))]
+        checks += [(f"dual {name} does not match its pattern", torch.where(pat == 0.0, z == 0.0, True).all())
+                   for name, z, pat in (("zl", it_curr.zl, b.ixl), ("zu", it_curr.zu, b.ixu),
+                                        ("vl", it_curr.vl, b.idl), ("vu", it_curr.vu, b.idu))]
+        for (what, _), good in zip(checks, torch.stack([flag for _, flag in checks]).tolist()):
+            if not good:
+                self.log.printf(Verbosity.WARNING, "deepchecks: %s", what)
+
+    # --------------------------------------------------------- checkpointing
+    def _collect_checkpoint(self, it_curr: Iterate, mu: float, strategy) -> dict:
+        """The solver state in ``hiop_tpu``'s checkpoint schema (host numpy;
+        the same keys and shapes, so either package resumes the other's)."""
+        state = {
+            "n": self.nlp.n, "m_eq": self.nlp.m_eq, "m_ineq": self.nlp.m_ineq,
+            "mu": float(mu), "iter_num": int(self.iter_num),
+            "theta_max": float(self.theta_max), "theta_min": float(self.theta_min),
+            "filter_entries": self.filter._entries,
+        }
+        for name in Iterate._fields:
+            state[f"it_{name}"] = to_numpy(getattr(it_curr, name))
+        if isinstance(strategy, _LowRankStrategy):
+            state["bfgs_S"] = to_numpy(strategy.bfgs.S)
+            state["bfgs_Y"] = to_numpy(strategy.bfgs.Y)
+            state["bfgs_active"] = to_numpy(strategy.bfgs.active)
+            state["bfgs_sigma"] = float(strategy.bfgs.sigma)
+        return state
+
+    def save_state_to_file(self, path: str, it_curr: Iterate, mu: float, strategy) -> None:
+        """Explicit checkpoint API (hiopAlgFilterIPM.hpp:399-421)."""
+        ckpt.save_state(
+            path,
+            self._collect_checkpoint(it_curr, mu, strategy),
+            fmt=self.opts.str_("checkpoint_format"),
+        )
+
+    def save_checkpoint(self, path: str) -> None:
+        """Checkpoint the in-flight state; callable from an iterate callback
+        (the reference's save_state_to_sidre_group usage in DenseConsEx1)."""
+        ref = getattr(self, "_ckpt_ref", None)
+        if ref is None:
+            raise RuntimeError("no in-flight state; solver is not running")
+        self.save_state_to_file(path, *ref)
+
+    def _try_restore_checkpoint(self, path: str, strategy):
+        """Returns (it_curr, mu) or None."""
+        if not os.path.exists(path):
+            self.log.printf(Verbosity.WARNING, "checkpoint file %s not found", path)
+            return None
+        state = ckpt.load_state(path)
+        ckpt.validate(state, self.nlp.n, self.nlp.m_eq, self.nlp.m_ineq)
+        dev = self.nlp._dev
+        it_curr = Iterate(*(dev(state[f"it_{n}"]) for n in Iterate._fields))
+        self.iter_num = int(state["iter_num"])
+        self.theta_max = float(state["theta_max"])
+        self.theta_min = float(state["theta_min"])
+        self.filter._entries = list(state.get("filter_entries", []))
+        if isinstance(strategy, _LowRankStrategy) and "bfgs_S" in state:
+            strategy.bfgs = blr.BfgsState(
+                S=dev(state["bfgs_S"]),
+                Y=dev(state["bfgs_Y"]),
+                active=dev(state["bfgs_active"]),
+                sigma=dev(state["bfgs_sigma"]),
+            )
+        self.log.printf(
+            Verbosity.SUMMARY, "restored checkpoint %s at iteration %d", path, self.iter_num
+        )
+        return it_curr, float(state["mu"])
 
 
 class FilterIPMQuasiNewton(FilterIPMBase):

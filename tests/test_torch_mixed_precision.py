@@ -24,9 +24,13 @@ Three kinds of parity:
   1e-8 relative, the f32 factorization count within 2 and the iteration
   count within 10% (the logic itself is held exactly above). On the card's
   ladder both packages run the same f32 stretch and the same first
-  demotion, compared over the first 12 iterations: later on, at B=16, the
-  port's trajectory needs feasibility restoration (ROADMAP item 12) where
-  ``hiop_tpu``'s converges.
+  demotion, compared over the first 12 iterations. Later on, at B=16, the
+  port's trajectory collapses its line search at iteration 39 where
+  ``hiop_tpu``'s does not: the soft restoration fails, the nested FR solve
+  restores feasibility in 3 iterations, and the port converges after 48
+  iterations (``hiop_tpu``: 44) to the same objective (5e-14 relative;
+  ``SELFCHECK`` has no B=16 entry, so the objective is held to
+  ``hiop_tpu``'s).
 
 Every ``hiop_tpu`` reference solve runs once, in a module-scoped fixture.
 """
@@ -175,6 +179,37 @@ def test_card_ladder_f32_first_stretch_matches_jax():
     assert _runs(t["facts"]) == _runs(j["facts"]) == [
         "quick-f32", "device-f32[schur_sparse_ldl]", "schur_sparse_ldl-f64"]
     assert abs(t["n_f32"] - j["n_f32"]) <= 2
+
+
+def test_card_ladder_f32_b16_recovers_through_restoration(jax_cpu_f32):
+    """Real f32 on the card's ladder at B=16, to the end: the collapsed
+    line search at iteration 39 goes to the soft restoration, which fails,
+    then to the nested FR solve, which restores feasibility; the solve then
+    converges to ``hiop_tpu``'s optimum (here the CPU ladder's, the same
+    problem's)."""
+    restorations = []
+    soft, apply = tfi.FilterIPMBase._solve_soft_fr, tfi.fr_mod.apply_feasibility_restoration
+
+    def soft_recorded(self, *a, **k):
+        out = soft(self, *a, **k)
+        restorations.append(("soft", self.iter_num, out is not None))
+        return out
+
+    def full_recorded(solver, *a, **k):
+        out = apply(solver, *a, **k)
+        restorations.append(("full", solver.iter_num, solver.last_fr["status"].name,
+                             solver.last_fr["iterations"], out is not None))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(tfi.FilterIPMBase, "_solve_soft_fr", soft_recorded)
+        mp.setattr(tfi.fr_mod, "apply_feasibility_restoration", full_recorded)
+        t = _mp_solve("torch", 16, True)
+    rt = t["r"]
+    assert rt.status.name == "Solve_Success" and rt.iterations == 48
+    assert restorations == [("soft", 39, False), ("full", 39, "User_Stopped", 3, True)]
+    _same_objective(rt, jax_cpu_f32["r"])
+    assert t["demotions"][:1] == ["f32 safe-tier factorization rejected"]
 
 
 @pytest.mark.slow

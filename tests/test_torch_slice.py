@@ -21,8 +21,8 @@ import examples.acopf_mds as jax_acopf
 import examples.mds_ex1 as jax_ex1
 import hiop_tpu.native.ldl as jax_native_ldl
 import hiop_tpu_torch.native.ldl as torch_native_ldl
-from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpDenseConstraints, NlpMDS, NlpOptions
-from hiop_tpu_torch.examples import acopf_mds, dense_ex3, mds_ex1
+from hiop_tpu_torch import FilterIPMNewton, NlpMDS, NlpOptions
+from hiop_tpu_torch.examples import acopf_mds, mds_ex1
 from hiop_tpu_torch.formulation.base import NlpFormulation
 from hiop_tpu_torch.linalg import ldl_blocked
 
@@ -105,12 +105,7 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 UNPORTED = [
     dict(jit_mode="iteration"),
     dict(jit_mode="solve"),
-    dict(checkpoint_load_on_start="yes"),
-    dict(elastic_mode="tighten_bound"),
-    dict(checkpoint_save="yes"),
-    dict(write_kkt="yes"),
-    dict(deepchecks="yes"),
-    dict(force_resto="yes"),
+    dict(checkpoint_format="orbax"),
     dict(profile_dir="trace"),
 ]
 
@@ -125,13 +120,25 @@ def test_unported_options_raise(opts):
 
 def test_unported_solvers_and_formulations_raise():
     o = NlpOptions()
-    o.update(compute_mode="cpu", verbosity_level=0, fixed_var="remove")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FilterIPMQuasiNewton(NlpDenseConstraints(dense_ex3.DenseConsEx3(8), o))
-    o = NlpOptions()
     o.update(compute_mode="cpu", verbosity_level=0)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         FilterIPMNewton(NlpFormulation(mds_ex1.MdsEx1(8, 4), o)).run()
+
+
+def test_restoration_over_an_unported_formulation_raises():
+    """Feasibility restoration keeps the base's structure class; a base
+    that is neither MDS nor dense-constrained (the sparse formulation is
+    not ported) raises naming its ROADMAP item."""
+    from types import SimpleNamespace
+
+    from hiop_tpu_torch.optimization.fr_problem import apply_feasibility_restoration
+
+    o = NlpOptions()
+    o.update(compute_mode="cpu", verbosity_level=0)
+    base = NlpFormulation(mds_ex1.MdsEx1(8, 4), o)
+    solver = SimpleNamespace(nlp=base, filter=None, log=base.log)
+    with pytest.raises(NotImplementedError, match="item 11"):
+        apply_feasibility_restoration(solver, None, 0.1, SimpleNamespace(nlp_feasib=1.0))
 
 
 @pytest.mark.slow
