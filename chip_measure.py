@@ -55,7 +55,6 @@ compare two versions of the kernels on one card.
 
 from __future__ import annotations
 
-import contextlib
 import json
 import os
 import sys
@@ -309,32 +308,6 @@ def main() -> int:
     return 0
 
 
-@contextlib.contextmanager
-def _count_syncs(torch):
-    """Count the calls that make the host wait for the device: ``.item()``,
-    ``.tolist()``, ``bool``/``float``/``int`` of a CUDA tensor and
-    ``.cpu()`` of one."""
-    counts = {"syncs": 0}
-    T = torch.Tensor
-    names = ("item", "tolist", "__bool__", "__float__", "__int__", "cpu")
-    saved = {k: getattr(T, k) for k in names}
-
-    def wrap(f):
-        def counted(self, *a, **k):
-            if self.is_cuda:
-                counts["syncs"] += 1
-            return f(self, *a, **k)
-        return counted
-
-    for k in names:
-        setattr(T, k, wrap(saved[k]))
-    try:
-        yield counts
-    finally:
-        for k, f in saved.items():
-            setattr(T, k, f)
-
-
 def _dense_case(torch, K, run) -> dict:
     """One solve four times: cold (the first in the process at its shapes),
     timed warm (kernel events on), counting host synchronizations, and
@@ -358,6 +331,8 @@ def _dense_case(torch, K, run) -> dict:
     K.stats.timing = False
     sizes = {f"{k[0]}:{k[1]}:{k[2]}": v for k, v in sorted(K.stats.sizes.items())}
     its = max(r.iterations, 1)
+    from chip_smoke import _count_syncs
+
     with _count_syncs(torch) as counts:
         r2 = run()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:

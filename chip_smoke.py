@@ -83,12 +83,35 @@ the script exits nonzero):
     solve that saves every 2 iterations and stops at 5, resumed from its
     file, gives the same bits as the uninterrupted solve; three iterations
     with ``write_kkt`` write three dumps; ``deepchecks`` gives the same bits
-    as phase 4. Files go under ``build/chip_smoke/`` in the checkout.
+    as phase 4. Files go under ``build/chip_smoke/`` in the checkout;
+18. the sparse formulation (``NlpSparse``): HiOp's sparse Ex1 at
+    n = ``SPARSE_N`` with default options, the host sparse-direct KKT
+    (SuperLU) at its saved objective; prints the backend by iteration,
+    ``n_fact_no_inertia``, host syncs per iteration and the seconds in the
+    host factorizations, the host solves and the copies;
+19. the same with ``KKTLinsys=normaleqn``: the Cholesky kernel at
+    (n-1)^2 = 4999^2, per launch in the solve (CUDA events) and alone beside
+    its plain version, ``torch.linalg.cholesky`` and the bound;
+20. the dense Newton ladder of sparse problems: sparse Ex2 at
+    n = ``SPARSE_SMALL_N`` and sparse Ex4 at their saved objectives, with at
+    least one device LDL^T launch between them (else Ex2 again with the
+    safe tier pinned); sparse Ex3 (ineq_feas) at n = ``SPARSE_N`` (the
+    sparse-direct route) at its LP optimum; the nonconvex MDS example 2 at
+    400/100 at its saved objective;
+21. ACOPF through ``AcopfSparse`` on the sparse-direct path: B=256 to
+    convergence at ``SELFCHECK[256]``, then B=``FULL_B`` capped at
+    ``B512_MAX_ITER`` (finite objective; ``SELFCHECK[512]`` if it
+    converges); s/iter, backends, peak memory;
+22. forced restoration over sparse Ex1 at n = ``SPARSE_SMALL_N`` through
+    ``SparseFeasibilityRestorationProblem``, at its saved objective;
+    prints the nested iterations and whether the base accepted the nested
+    point.
 
 Each main-path phase sets the launch counts to zero just before each solve
 and reads them just after; phases 14-16 also read them around each nested
 FR solve (``fr_path_launches`` in the ``kernels`` line) and time the
-kernels there (``fr_path_kernel_ms``). The last three lines of
+kernels there (``fr_path_kernel_ms``); phases 18-22 give theirs as
+``sparse_path_launches`` and ``sparse_path_kernel_ms``. The last three lines of
 standard output are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
@@ -140,6 +163,15 @@ NEWTON_N = 5000
 #: constraints, n_d = max(4, B // 5) dense variables; the nested FR problem
 #: has n = 10 B + n_d + 2 m variables)
 FULL_B = 512
+
+#: phases 18-19: HiOp's sparse examples at their largest self-check size
+#: (NlpSparseEx1Driver.cpp:295-296): n + m = 9999 >= 2000, the host
+#: sparse-direct KKT; with KKTLinsys=normaleqn the (n-1)^2 Cholesky
+SPARSE_N = 5000
+
+#: phases 20 and 22: the size below n + m = 2000 at which the sparse
+#: examples take the dense Newton KKT (and its device safe tier)
+SPARSE_SMALL_N = 500
 
 
 def _log(*a) -> None:
@@ -744,7 +776,8 @@ def _fr_log(torch, filter_ipm, K):
         return fact
 
     def counted(Jc, Jd, *a, **k):
-        log["matfree"].append((str(Jc.dtype).replace("torch.", ""), Jc.shape[0] + Jd.shape[0], Jc.shape[1]))
+        dtype = getattr(Jc, "vals", Jc).dtype   # a TripletMatrix carries its values
+        log["matfree"].append((str(dtype).replace("torch.", ""), Jc.shape[0] + Jd.shape[0], Jc.shape[1]))
         return matfree(Jc, Jd, *a, **k)
 
     frm.apply_feasibility_restoration, filter_ipm.FilterIPMBase._solve_soft_fr = applied, softened
@@ -923,6 +956,276 @@ def phase_aux(torch, phase4) -> None:
     _check(same, "deepchecks changed the solve")
 
 
+@contextlib.contextmanager
+def _count_syncs(torch):
+    """Count the calls that make the host wait for the device: ``.item()``,
+    ``.tolist()``, ``bool``/``float``/``int`` of a CUDA tensor and
+    ``.cpu()`` of one."""
+    counts = {"syncs": 0}
+    T = torch.Tensor
+    names = ("item", "tolist", "__bool__", "__float__", "__int__", "cpu")
+    saved = {k: getattr(T, k) for k in names}
+
+    def wrap(f):
+        def counted(self, *a, **k):
+            if self.is_cuda:
+                counts["syncs"] += 1
+            return f(self, *a, **k)
+        return counted
+
+    for k in names:
+        setattr(T, k, wrap(saved[k]))
+    try:
+        yield counts
+    finally:
+        for k, f in saved.items():
+            setattr(T, k, f)
+
+
+@contextlib.contextmanager
+def _sparse_direct_log(filter_ipm):
+    """Record each sparse-direct iteration's backend (after the chronic
+    switch), the last strategy, and the seconds spent in the host
+    factorizations, the host solves, and the device<->host copies."""
+    from hiop_tpu_torch.kkt import sparse_direct as sd
+
+    log = {"backend": [], "strategy": None, "factorize": 0.0, "solve": 0.0, "copies": 0.0}
+    S = filter_ipm._SparseDirectStrategy
+    prepare, to_host, to_device = S.prepare, filter_ipm._to_host, filter_ipm._to_device
+    saved = {(C, k): getattr(C, k) for C in (sd.SparseXDYcYdKKT, sd.SparseXYcYdKKT)
+             for k in ("factorize", "solve")}
+
+    def timed(key, f):
+        def run(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return f(*a, **k)
+            finally:
+                log[key] += time.perf_counter() - t0
+        return run
+
+    def kept(self, *a, **k):
+        out = prepare(self, *a, **k)
+        log["backend"].append(self._solver_name)
+        log["strategy"] = self
+        return out
+
+    S.prepare = kept
+    filter_ipm._to_host, filter_ipm._to_device = timed("copies", to_host), timed("copies", to_device)
+    for (C, k), f in saved.items():
+        setattr(C, k, timed(k, f))
+    try:
+        yield log
+    finally:
+        S.prepare = prepare
+        filter_ipm._to_host, filter_ipm._to_device = to_host, to_device
+        for (C, k), f in saved.items():
+            setattr(C, k, f)
+
+
+def _sparse_phase(torch, name, run, need):
+    """One solve of the sparse path with the launch counts at zero, the
+    per-launch kernel events on; returns (result, wall, launches and kernel
+    ms by size)."""
+    from hiop_tpu_torch.linalg import kernels as K
+
+    K.stats.timing = True
+    try:
+        r, wall, _, sizes = _solve_phase(torch, name, run, need)
+        kernel_ms: dict = {}
+        for kname, n, dname, start, end in K.stats.events:
+            key = f"{kname}:{n}:{dname}"
+            kernel_ms[key] = kernel_ms.get(key, 0.0) + start.elapsed_time(end)
+    finally:
+        K.stats.timing = False
+    return r, wall, dict(launches=sizes, kernel_ms=kernel_ms)
+
+
+def phase_sparse(torch, dev) -> dict:
+    """Phases 18-22: the sparse formulation (``NlpSparse``) on the card.
+    Returns, by phase, the kernel launches and their summed kernel
+    milliseconds (CUDA events per launch), by size."""
+    from hiop_tpu_torch import NlpOptions, NlpSparse
+    from hiop_tpu_torch.examples import acopf_mds, mds_ex2, sparse_ex1, sparse_ex2, sparse_ex3, sparse_ex4
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+    from hiop_tpu_torch.linalg import cholesky as chol
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.linalg import krylov
+    from hiop_tpu_torch.linalg import ldl_blocked
+    from hiop_tpu_torch.optimization import filter_ipm
+
+    out = {}
+    n = SPARSE_N
+    _log(f"[18] sparse: sparse_ex1 n={n}, default options (the host sparse-direct KKT over SuperLU)")
+    with _sparse_direct_log(filter_ipm) as log, _count_syncs(torch) as syncs:
+        r, wall, got = _sparse_phase(torch, "sparse_ex1 splu", lambda: sparse_ex1.solve(n, verbosity_level=0), {})
+    its = max(r.iterations, 1)
+    st = log["strategy"]
+    _check(st is not None, "sparse_ex1: the sparse-direct strategy did not run")
+    ref, tol = sparse_ex1.SELFCHECK[n]
+    _log(f"  sparse_ex1 splu: {r.status.name} after {r.iterations} iterations, {wall / its:.4f} s/iter; "
+         f"backends by iteration: {_runs(log['backend'])}; n_fact_no_inertia "
+         f"{st.stats.kkt.n_fact_no_inertia}; host syncs per iteration {syncs['syncs'] / its:.2f}; seconds "
+         f"in factorize {log['factorize']:.3f}, in solve {log['solve']:.3f}, in copies {log['copies']:.3f} "
+         f"(of {wall:.3f}); obj {r.obj!r} (saved {ref!r})")
+    _check(r.status.is_success, f"sparse_ex1 splu: status {r.status.name}")
+    _check(sparse_ex1.selfcheck_ok(r.obj, ref, tol), f"sparse_ex1 splu: obj {r.obj!r} vs saved {ref!r}")
+    out["sparse_ex1 splu"] = got
+
+    m = n - 1
+    key = f"cholesky:{m}:float64"
+    _log(f"[19] sparse: sparse_ex1 n={n}, KKTLinsys=normaleqn (the Cholesky kernel at {m}^2)")
+    r, wall, got = _sparse_phase(
+        torch, "sparse_ex1 normaleqn", lambda: sparse_ex1.solve(n, verbosity_level=0, KKTLinsys="normaleqn"),
+        {"cholesky": f"the {m} x {m} normal-equations system"})
+    _check(got["launches"].get(key, 0) > 0, f"sparse_ex1 normaleqn: no launch {key}")
+    its = max(r.iterations, 1)
+    A = _spd(torch, m, m, torch.float64, dev)
+    L, Lp = chol.cholesky(A), chol.cholesky_plain(A)
+    torch.cuda.synchronize()
+    err = _rel(torch, L, Lp)
+    _check(err <= 1e-10, f"cholesky float64 n={m}: rel err {err:.3e}")
+    ms = _event_ms(torch, lambda: chol.cholesky(A), 10)
+    plain_ms = _event_ms(torch, lambda: chol.cholesky_plain(A), 1)
+    lib_ms = _event_ms(torch, lambda: torch.linalg.cholesky(A), 10)
+    bms, by = _bound_ms(m, 8, "float64")
+    n_launch = got["launches"].get(key, 0)
+    per_launch = got["kernel_ms"].get(key, 0.0) / max(n_launch, 1)
+    _log(f"  sparse_ex1 normaleqn: {r.status.name} after {r.iterations} iterations, {wall / its:.4f} s/iter; "
+         f"{n_launch} launches at {m}^2, {per_launch:.3f} ms per launch in the solve (CUDA events); "
+         f"alone: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, torch.linalg.cholesky {lib_ms:.3f} ms, "
+         f"bound {bms:.4f} ms ({by}), rel err {err:.2e}; obj {r.obj!r}")
+    ref, tol = sparse_ex1.SELFCHECK[n]
+    _check(r.status.is_success, f"sparse_ex1 normaleqn: status {r.status.name}")
+    _check(sparse_ex1.selfcheck_ok(r.obj, ref, tol), f"sparse_ex1 normaleqn: obj {r.obj!r} vs saved {ref!r}")
+    out["sparse_ex1 normaleqn"] = dict(got, alone=dict(
+        n=m, dtype="float64", max_abs_err=float((L - Lp).abs().max()), ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms, bound_ms=bms, bound_by=by, ms_per_launch_in_solve=per_launch))
+
+    n2 = SPARSE_SMALL_N
+    _log(f"[20] sparse: the dense ladder of sparse_ex2 n={n2} and sparse_ex4, sparse_ex3 n={n}, "
+         f"mds_ex2 400/100")
+    ldl = 0
+    for name, run, ref in (
+        ("sparse_ex2", lambda: sparse_ex2.solve(n2, verbosity_level=0), sparse_ex2.SELFCHECK[n2]),
+        ("sparse_ex4", lambda: sparse_ex4.solve(verbosity_level=0), sparse_ex4.SELFCHECK[2]),
+    ):
+        with _dense_log(filter_ipm, krylov) as dlog:
+            r, wall, got = _sparse_phase(torch, name, run, {"cholesky": "quick tier"})
+        ldl += sum(v for k, v in got["launches"].items() if k.startswith("ldl_nopiv:"))
+        _log(f"  {name}: {r.status.name} after {r.iterations} iterations; factorizations in order: "
+             f"{_runs(dlog['fact'])}; obj {r.obj!r} (saved {ref[0]!r})")
+        _check(r.status.is_success, f"{name}: status {r.status.name}")
+        _check(sparse_ex1.selfcheck_ok(r.obj, *ref), f"{name}: obj {r.obj!r} vs saved {ref[0]!r}")
+        out[name] = got
+    # the LDL^T kernel alone at the size of sparse_ex2's XDYcYd saddle
+    # (n + 2 m_ineq + m_eq = 1500, padded to 1536), against its plain version
+    M, m_neg = _saddle(torch, 1500, 1500, torch.float64, dev)
+    f = ldl_blocked.ldl_factor(M)
+    n_p = f.L.shape[0]
+    A = ldl_blocked._pad_sym(M, n_p)
+    Lp, dp = ldl_blocked.ldl_nopiv_plain(A)
+    torch.cuda.synchronize()
+    err = max(_rel(torch, f.L, Lp), _rel(torch, f.d, dp))
+    _check(bool(f.ok) and int(f.n_neg) == m_neg and err <= 1e-9, f"ldl float64 n=1500: rel err {err:.3e}")
+    ms = _event_ms(torch, lambda: ldl_blocked.ldl_nopiv(A), 20)
+    plain_ms = _event_ms(torch, lambda: ldl_blocked.ldl_nopiv_plain(A), 2)
+    bms, by = _bound_ms(n_p, 8, "float64")
+    _log(f"  ldl_nopiv float64 n=1500->{n_p} alone: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+         f"{bms:.4f} ms ({by}), rel err {err:.2e}")
+    out["sparse_ex2"]["alone"] = dict(
+        n=n_p, dtype="float64", max_abs_err=max(float((f.L - Lp).abs().max()), float((f.d - dp).abs().max())),
+        ms=ms, plain_ms=plain_ms, library_ms=None, bound_ms=bms, bound_by=by)
+    if ldl == 0:
+        _log("  neither reached the device safe tier: sparse_ex2 again with it pinned (_safe_mode = 1)")
+        o = NlpOptions()
+        o.update(Hessian="analytical_exact", verbosity_level=0, linear_solver_dense="ldl_nopiv")
+        r, wall, got = _sparse_phase(
+            torch, "sparse_ex2 safe",
+            lambda: _forced_safe_newton(filter_ipm)(NlpSparse(sparse_ex2.SparseEx2(n2), o)).run(),
+            {"ldl_nopiv": "device safe tier"})
+        _check(r.status.is_success, f"sparse_ex2 safe: status {r.status.name}")
+        out["sparse_ex2 safe"] = got
+    # Ex3 at its largest self-check size, where the default route is the
+    # host sparse-direct KKT: on the dense ladder of the card (n = 500) its
+    # outcome is decided by rounding, in hiop_tpu too (ROADMAP section 3)
+    with _sparse_direct_log(filter_ipm) as log:
+        r, wall, got = _sparse_phase(torch, "sparse_ex3", lambda: sparse_ex3.solve(n, verbosity_level=0), {})
+    _log(f"  sparse_ex3 ineq_feas n={n}: {r.status.name} after {r.iterations} iterations, backends "
+         f"{_runs(log['backend'])}, obj {r.obj!r} (LP optimum {sparse_ex3.LP_OPTIMUM!r}; HiOp stopped at "
+         f"{sparse_ex3.SELFCHECK_REFERENCE[n]!r})")
+    _check(log["backend"], "sparse_ex3: the sparse-direct strategy did not run")
+    _check(r.status.is_success and abs(r.obj - sparse_ex3.LP_OPTIMUM) <= sparse_ex3.LP_TOL,
+           f"sparse_ex3: {r.status.name}, obj {r.obj!r}")
+    out["sparse_ex3"] = got
+    with _tier_log(kkt_mds) as tiers:
+        r, wall, got = _sparse_phase(torch, "mds_ex2 400/100", lambda: mds_ex2.solve(400, 100, verbosity_level=0),
+                                     {"cholesky": "quick tier"})
+    rel = abs((r.obj - mds_ex2.SELFCHECK_OBJ) / mds_ex2.SELFCHECK_OBJ)
+    _log(f"  mds_ex2 400/100: {r.status.name} after {r.iterations} iterations, "
+         f"{wall / max(r.iterations, 1):.4f} s/iter, safe tiers in order: {_runs(tiers)}; obj {r.obj!r} "
+         f"(saved {mds_ex2.SELFCHECK_OBJ!r}, rel {rel:.2e})")
+    _check(r.status.is_success and rel <= 1e-6, f"mds_ex2: {r.status.name}, obj {r.obj!r}")
+    out["mds_ex2"] = got
+
+    _log("[21] sparse: ACOPF through AcopfSparse on the host sparse-direct path")
+    for B, cap in ((256, None), (FULL_B, B512_MAX_ITER)):
+        opts = dict(verbosity_level=0, sparse=True)
+        if cap:
+            opts["max_iter"] = cap
+        torch.cuda.reset_peak_memory_stats()
+        with _sparse_direct_log(filter_ipm) as log:
+            r, wall, got = _sparse_phase(torch, f"acopf sparse B={B}", lambda: acopf_mds.solve(B, **opts), {})
+        its = max(r.iterations, 1)
+        ref, tol = acopf_mds.SELFCHECK[B]
+        _log(f"  acopf sparse B={B}: {r.status.name} after {r.iterations} iterations, {wall / its:.4f} s/iter; "
+             f"backends by iteration: {_runs(log['backend'])}; seconds in factorize {log['factorize']:.3f}, "
+             f"solve {log['solve']:.3f}, copies {log['copies']:.3f}; obj {r.obj!r} (saved {ref!r}); "
+             f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
+        _check(log["backend"], f"acopf sparse B={B}: the sparse-direct strategy did not run")
+        _check(r.obj == r.obj and abs(r.obj) < float("inf"), f"acopf sparse B={B}: objective {r.obj!r}")
+        if cap is None or r.status.is_success:
+            _check(r.status.is_success, f"acopf sparse B={B}: status {r.status.name}")
+            _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)), f"acopf sparse B={B}: obj {r.obj!r} vs {ref!r}")
+        out[f"acopf sparse B={B}"] = got
+
+    _log(f"[22] sparse: forced restoration (force_resto=yes), sparse_ex1 n={n2}")
+    from hiop_tpu_torch.optimization import fr_problem as frm
+
+    made = []
+    init = frm.SparseFeasibilityRestorationProblem.__init__
+
+    def spied(self, *a, **k):
+        made.append(type(self).__name__)
+        return init(self, *a, **k)
+
+    frm.SparseFeasibilityRestorationProblem.__init__ = spied
+    try:
+        K.stats.timing = True
+        with _fr_log(torch, filter_ipm, K) as log:
+            r, wall, _, sizes = _solve_phase(
+                torch, "sparse_ex1 FR", lambda: sparse_ex1.solve(n2, verbosity_level=0, force_resto="yes"),
+                {"cholesky": "quick tier"})
+    finally:
+        K.stats.timing = False
+        frm.SparseFeasibilityRestorationProblem.__init__ = init
+    launches = _fr_report("sparse_ex1 FR", log)
+    _check(made == ["SparseFeasibilityRestorationProblem"], f"sparse_ex1 FR: FR problems {made}")
+    f = log["full"][0]
+    _log(f"  sparse_ex1 FR: nested iterations {f['nested_iterations']}, the base accepted the nested point: "
+         f"{f['accepted']}" + ("" if f["accepted"] else " (linear constraints: the acceptance test compares "
+                                                      "rounding noise, ROADMAP section 3)"))
+    ref, tol = sparse_ex1.SELFCHECK[n2]
+    _check(r.status.is_success, f"sparse_ex1 FR: status {r.status.name}")
+    _check(sparse_ex1.selfcheck_ok(r.obj, ref, tol), f"sparse_ex1 FR: obj {r.obj!r} vs saved {ref!r}")
+    kernel_ms: dict = {}
+    for g in log["full"]:
+        for key, v in g["kernel_ms"].items():
+            kernel_ms[key] = kernel_ms.get(key, 0.0) + v
+    out["sparse_ex1 FR"] = dict(launches=sizes, kernel_ms=kernel_ms, nested_launches=launches)
+    return out
+
+
 def _why_rejected(torch, kkt_mds, rejected) -> str:
     """Which part of a rejected f32 device factorization's ``ok`` failed
     (a null K_s entry, a non-finite factor, pivots at or below
@@ -1080,6 +1383,7 @@ def main() -> int:
     fr = phase_restoration(torch)
     _log("[17] checkpoints, write_kkt and deepchecks: mds_ex1 400/100")
     phase_aux(torch, r4)
+    sparse = phase_sparse(torch, dev)
 
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
@@ -1109,7 +1413,19 @@ def main() -> int:
                 fr_path_kernel_ms={
                     phase: {k: v for k, v in got["kernel_ms"].items()
                             if k.startswith(name + ":") and k.endswith(dname)}
-                    for phase, got in fr.items() if got["kernel_ms"]}))
+                    for phase, got in fr.items() if got["kernel_ms"]},
+                sparse_path_launches={
+                    phase: {k: v for k, v in got["launches"].items()
+                            if k.startswith(name + ":") and k.endswith(dname)}
+                    for phase, got in sparse.items()},
+                sparse_path_kernel_ms={
+                    phase: {k: v for k, v in got["kernel_ms"].items()
+                            if k.startswith(name + ":") and k.endswith(dname)}
+                    for phase, got in sparse.items() if got["kernel_ms"]},
+                **({"sparse_normaleqn_shape": sparse["sparse_ex1 normaleqn"]["alone"]}
+                   if name == "cholesky" and dname == "float64" else {}),
+                **({"sparse_ex2_saddle_shape": sparse["sparse_ex2"]["alone"]}
+                   if name == "ldl_nopiv" and dname == "float64" else {})))
     _log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)

@@ -3,10 +3,12 @@
 It mirrors ``hiop_tpu``'s module layout file for file. ``hiop_tpu`` (JAX)
 is the reference each ported module is tested against; this package never
 imports it or JAX. The port covers the filter line-search IPM through the
-general loop: the Newton solver on mixed dense-sparse (MDS) and
-dense-constrained problems (every dense KKT class: XDYcYd, XYcYd,
-condensed, normal equations, full), and the quasi-Newton (L-BFGS) solver on
-dense-constrained problems, in f64 and in mixed precision
+general loop: the Newton solver on mixed dense-sparse (MDS),
+dense-constrained and sparse problems (every dense KKT class: XDYcYd,
+XYcYd, condensed, normal equations, full; for sparse problems also the
+host sparse-direct XDYcYd/XYcYd and full-space KKT over SuperLU or the
+native LDL^T), and the quasi-Newton (L-BFGS) solver on dense-constrained
+and sparse problems, in f64 and in mixed precision
 (``kkt_fact_dtype=float32`` with f64 FGMRES refinement), with the
 reference's robustness surface (soft and full feasibility restoration,
 elastic mode, ``fixed_var=remove``, checkpoints, ``write_kkt``,
@@ -39,10 +41,12 @@ from hiop_tpu_torch.interface.base import (  # noqa: E402
     DenseConstraintsProblem,
     MdsProblem,
     NlpProblem,
+    SparseProblem,
 )
 from hiop_tpu_torch.formulation.base import NlpFormulation  # noqa: E402
 from hiop_tpu_torch.formulation.dense import NlpDenseConstraints  # noqa: E402
 from hiop_tpu_torch.formulation.mds import NlpMDS  # noqa: E402
+from hiop_tpu_torch.formulation.sparse import NlpSparse  # noqa: E402
 from hiop_tpu_torch.optimization.filter_ipm import (  # noqa: E402
     FilterIPMNewton,
     FilterIPMQuasiNewton,
@@ -58,10 +62,12 @@ __all__ = [
     "NlpProblem",
     "DenseConstraintsProblem",
     "MdsProblem",
+    "SparseProblem",
     "AutoDiffNlpProblem",
     "NlpFormulation",
     "NlpDenseConstraints",
     "NlpMDS",
+    "NlpSparse",
     "FilterIPMNewton",
     "FilterIPMQuasiNewton",
 ]

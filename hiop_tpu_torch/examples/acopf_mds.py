@@ -1,7 +1,8 @@
 """ACOPF-class mixed dense-sparse NLP (the BASELINE.json north-star shape),
 with its evaluations in torch on the solver's device.
 
-Counterpart of ``examples/acopf_mds.py`` (MDS formulation only): a
+Counterpart of ``examples/acopf_mds.py`` (the MDS formulation, and its
+twin through the sparse interface, :class:`AcopfSparse`): a
 synthetic AC optimal power flow over a ring-plus-chords grid. Sparse block:
 the network state in rectangular voltage coordinates with bus current
 injections and bilinear products diagonalized through auxiliaries
@@ -22,7 +23,7 @@ Bounds: v in [0.81, 1.21], w in [0, Imax^2], g in [0, gmax], f_0 = 0
 packages build the same instance from the same seed.
 
 Run: ``python -m hiop_tpu_torch.examples.acopf_mds 32 -selfcheck``
-(on cuda:0; add ``-cpu`` for the CPU).
+(on cuda:0; add ``-cpu`` for the CPU, ``-sparse`` for ``AcopfSparse``).
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ import sys
 import numpy as np
 import torch
 
-from hiop_tpu_torch import FilterIPMNewton, MdsProblem, NlpMDS, NlpOptions
+from hiop_tpu_torch import FilterIPMNewton, MdsProblem, NlpMDS, NlpOptions, NlpSparse, SparseProblem
 from hiop_tpu_torch.interface.base import INF
 from hiop_tpu_torch.linalg.vector_ops import scatter_add_
 from hiop_tpu_torch.utils.carry import DeviceCache
@@ -367,6 +368,78 @@ class AcopfMds(MdsProblem):
         return hss, hdd
 
 
+class AcopfSparse(SparseProblem):
+    """The same NLP through the fully sparse interface (generators appended
+    to the sparse variables), the cross-check twin of :class:`AcopfMds`.
+    The Jacobian is the sparse block's triplets followed by the dense
+    participation block's as triplets on the Pbal rows; the Hessian's upper
+    triangle is the sparse diagonal followed by the dense cost block Q's
+    upper triangle."""
+
+    def __init__(self, n_bus: int = 32, seed: int = 0):
+        self.core = c = _AcopfCore(n_bus, seed)
+        self.n = c.n_sp + c.ng
+        self.m = c.m
+        B, ng = c.B, c.ng
+        ar = 6 * B + np.repeat(np.arange(B), ng)
+        ac = c.n_sp + np.tile(np.arange(ng), B)
+        self._jr = np.concatenate([c._jr, ar])
+        self._jc = np.concatenate([c._jc, ac])
+        qr, qc = np.triu_indices(ng)
+        self._hr = np.concatenate([np.arange(c.n_sp), c.n_sp + qr])
+        self._hc = np.concatenate([np.arange(c.n_sp), c.n_sp + qc])
+        self._data = DeviceCache(
+            q_ut=np.asarray(c.gd["cost_Q"])[qr, qc],
+            alpha_flat=np.ravel(c.gd["alpha"]),
+        )
+
+    def get_prob_sizes(self):
+        return self.n, self.m
+
+    def get_sparse_blocks_info(self):
+        return self.n, self._jr.size, self._hr.size
+
+    def get_vars_info(self):
+        xl, xu = self.core.var_bounds_sparse()
+        return (
+            np.concatenate([xl, np.zeros(self.core.ng)]),
+            np.concatenate([xu, np.asarray(self.core.gd["g_max"])]),
+        )
+
+    def get_cons_info(self):
+        return self.core.cons_bounds()
+
+    def get_starting_point(self):
+        return np.concatenate([self.core.start_sparse(), self.core.start_dense()])
+
+    def eval_f(self, x):
+        c = self.core
+        return c.obj_sparse(x[: c.n_sp]) + c.obj_dense(x[c.n_sp:])
+
+    def eval_grad_f(self, x):
+        c = self.core
+        return torch.cat([c.grad_sparse(x[: c.n_sp]), c.grad_dense(x[c.n_sp:])])
+
+    def eval_cons(self, x):
+        c = self.core
+        return c.cons_all(x[: c.n_sp], x[c.n_sp:])
+
+    def jac_structure(self):
+        return self._jr, self._jc
+
+    def eval_jac_vals(self, x):
+        c = self.core
+        return torch.cat([c.jac_vals_sparse(x[: c.n_sp]), self._data.on(x.device)["alpha_flat"]])
+
+    def hess_structure(self):
+        return self._hr, self._hc
+
+    def eval_hess_vals(self, x, obj_factor, lam):
+        c = self.core
+        hd = c.hess_diag_sparse(x[: c.n_sp], obj_factor, lam)
+        return torch.cat([hd, obj_factor * self._data.on(x.device)["q_ut"]])
+
+
 def acopf_options(**opts) -> NlpOptions:
     """The example's options, updated with ``opts``."""
     o = NlpOptions()
@@ -380,8 +453,14 @@ def acopf_options(**opts) -> NlpOptions:
     return o
 
 
-def solve(n_bus: int = 32, seed: int = 0, **opts):
-    nlp = NlpMDS(AcopfMds(n_bus, seed), acopf_options(**opts))
+def solve(n_bus: int = 32, seed: int = 0, sparse: bool = False, **opts):
+    """``sparse=True`` solves :class:`AcopfSparse` under ``NlpSparse``
+    (from B=64 on, n + m >= 2000: the host sparse-direct KKT)."""
+    o = acopf_options(**opts)
+    if sparse:
+        nlp = NlpSparse(AcopfSparse(n_bus, seed), o)
+    else:
+        nlp = NlpMDS(AcopfMds(n_bus, seed), o)
     return FilterIPMNewton(nlp).run()
 
 
@@ -390,7 +469,7 @@ def main(argv=None):
     pos = [a for a in argv if not a.startswith("-")]
     n_bus = int(pos[0]) if pos else 32
     extra = dict(compute_mode="cpu") if "-cpu" in argv else {}
-    r = solve(n_bus, **extra)
+    r = solve(n_bus, sparse="-sparse" in argv, **extra)
     print(f"Objective: {r.obj:.12e} status {r.status.name} iters {r.iterations}")
     if "-selfcheck" in argv:
         if not r.status.is_success:

@@ -1,9 +1,10 @@
 """User-facing NLP problem interfaces (L4).
 
 Counterpart of ``hiop_tpu/interface/base.py`` (reference
-hiopInterface.hpp:134,518,586): :class:`NlpProblem` (sizes, bounds,
+hiopInterface.hpp:134,518,586,779): :class:`NlpProblem` (sizes, bounds,
 f/grad/cons evaluations, starting point, callbacks),
 :class:`DenseConstraintsProblem` (a dense constraint Jacobian),
+:class:`SparseProblem` (triplet Jacobian and upper-triangle Hessian),
 :class:`MdsProblem` (mixed dense-sparse block structure) and
 :class:`AutoDiffNlpProblem` (derivatives from ``torch.func``).
 
@@ -110,6 +111,35 @@ class DenseConstraintsProblem(NlpProblem):
 
     def eval_jac_cons(self, x):
         """Return the dense (m, n) Jacobian of all constraints."""
+        raise NotImplementedError
+
+
+class SparseProblem(NlpProblem):
+    """Fully sparse NLP (hiopInterfaceSparse, hiopInterface.hpp:779).
+
+    Structure is static (declared once, host integer arrays); only values
+    are re-evaluated. The Hessian is the upper triangle of the Lagrangian
+    Hessian obj_factor * H_f + sum lam_i * H_{c_i}.
+    """
+
+    def get_sparse_blocks_info(self) -> Tuple[int, int, int]:
+        """Return (n, nnz_jac, nnz_hess_upper_triangle)."""
+        raise NotImplementedError
+
+    def jac_structure(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Static (rows, cols) of the Jacobian triplets."""
+        raise NotImplementedError
+
+    def eval_jac_vals(self, x):
+        """Values aligned with jac_structure()."""
+        raise NotImplementedError
+
+    def hess_structure(self) -> Tuple[np.ndarray, np.ndarray]:
+        """Static (rows, cols) of the upper-triangle Hessian triplets."""
+        raise NotImplementedError
+
+    def eval_hess_vals(self, x, obj_factor, lam):
+        """Values aligned with hess_structure()."""
         raise NotImplementedError
 
 

@@ -11,12 +11,15 @@ m x m matrix. That factorization is a library call in both packages
 (XLA's potrf there, ``torch.linalg.cholesky_ex`` here); it is not one of
 the hand-written kernels. For a Jacobian too large to form J J^T,
 :func:`lsq_duals_matfree` solves the same normal equations by CG
-(:func:`hiop_tpu_torch.linalg.krylov.pcg`) with Jacobian products only.
+(:func:`hiop_tpu_torch.linalg.krylov.pcg`) with Jacobian products only,
+dense or :class:`~hiop_tpu_torch.linalg.sparse.TripletMatrix`.
 """
 
 from __future__ import annotations
 
 import torch
+
+from hiop_tpu_torch.linalg.sparse import TripletMatrix
 
 
 def _cholesky_nan_on_failure(M):
@@ -88,13 +91,16 @@ LSQ_DENSE_MAX_ENTRIES = 50_000_000
 def initial_duals_lsq(Jc, Jd, grad_f, zl, zu, vl, vu, lsq_max: float):
     """LSQ initialization with the duals_lsq_ini_max cap
     (compute_initial_duals_eq): falls back to zeros when the LSQ duals are
-    large (badly scaled problems). Above ``LSQ_DENSE_MAX_ENTRIES`` Jacobian
+    large (badly scaled problems). Triplet (matrix-free) Jacobians take
+    :func:`lsq_duals_matfree` in f64. Above ``LSQ_DENSE_MAX_ENTRIES`` dense Jacobian
     entries it runs the matrix-free CG in f32 at ``tol=1e-6`` and casts
     back: this is an initialization whose result is magnitude-capped
     anyway, and J J^T of such a Jacobian costs more memory than the solve
     proper (the feasibility-restoration NLP of ACOPF B=512 has a
     4608 x 14 438 Jacobian)."""
-    if (Jc.shape[0] + Jd.shape[0]) * Jc.shape[1] > LSQ_DENSE_MAX_ENTRIES:
+    if isinstance(Jc, TripletMatrix) or isinstance(Jd, TripletMatrix):
+        yc, yd = lsq_duals_matfree(Jc, Jd, grad_f, zl, zu, vl, vu)
+    elif (Jc.shape[0] + Jd.shape[0]) * Jc.shape[1] > LSQ_DENSE_MAX_ENTRIES:
         f32 = torch.float32
         yc, yd = lsq_duals_matfree(
             Jc.to(f32), Jd.to(f32), grad_f.to(f32),

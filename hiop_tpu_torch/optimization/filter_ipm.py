@@ -14,13 +14,16 @@ errors/termination -> mu update loop -> KKT update -> search direction ->
 fraction-to-boundary -> backtracking filter line search (with SOC) -> dual
 update -> re-evals }.
 
-The port covers the general loop (``jit_mode=kernels``) with three
+The port covers the general loop (``jit_mode=kernels``) with five
 search-direction strategies: :class:`_LowRankStrategy` (L-BFGS, the
 low-rank KKT) for the quasi-Newton solver; :class:`_NewtonDenseStrategy`
 (the dense KKT classes, quick Cholesky-Schur tier and safe ladder, FGMRES
-and BiCGStab refinement) and :class:`_MdsStrategy` (the quick Cholesky
+and BiCGStab refinement), :class:`_MdsStrategy` (the quick Cholesky
 tier and the safe ladder: the native bordered sparse LDL^T on the host,
-device no-pivot LDL^T, host LU + eigen inertia) for the Newton solver. The
+device no-pivot LDL^T, host LU + eigen inertia), and for sparse problems
+:class:`_SparseDirectStrategy` and :class:`_SparseFullStrategy` (host
+sparse factorizations of the triplet-assembled KKT) for the Newton
+solver. The
 Newton strategies run in f64 or with ``kkt_fact_dtype=float32``: f32
 factorizations through the same kernels, each solve certified by f64
 FGMRES refinement (:mod:`hiop_tpu_torch.linalg.krylov`) under the
@@ -58,6 +61,7 @@ from hiop_tpu_torch.kkt import mds as kkt_mds
 from hiop_tpu_torch.kkt import newton_dense as kkt_nd
 from hiop_tpu_torch.kkt import normal_eqn as kkt_ne
 from hiop_tpu_torch.linalg import krylov
+from hiop_tpu_torch.linalg.sparse import TripletMatrix
 from hiop_tpu_torch.native import ldl as native_ldl
 from hiop_tpu_torch.optimization import duals_update as du
 from hiop_tpu_torch.optimization import fr_problem as fr_mod
@@ -663,6 +667,296 @@ class _NewtonDenseStrategy:
         rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
         dx, dd, dyc, dyd = self._solve_factors(self._factors, rx_t, rd_t, ryc, ryd)
         return res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd)
+
+
+def _to_host(*tensors):
+    """The tensors as host float64 arrays, through one device-to-host copy
+    (one synchronization)."""
+    sizes = [t.numel() for t in tensors]
+    flat = to_numpy(torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]))
+    return np.split(flat, np.cumsum(sizes)[:-1])
+
+
+def _to_device(arrays, like: torch.Tensor):
+    """Host arrays as tensors on ``like``'s device, through one copy."""
+    flat = torch.as_tensor(np.concatenate(arrays), dtype=like.dtype, device=like.device)
+    return flat.split([a.size for a in arrays])
+
+
+def _triplet_values(nlp, Jc, Jd):
+    """The Jacobian's (eq, ineq) triplet values as tensors: the handles'
+    own values in matrix-free mode, else gathered out of the dense
+    Jacobians on their device (no re-evaluation of user callbacks, and
+    only nnz values ever cross to the host)."""
+    if isinstance(Jc, TripletMatrix):
+        return Jc.vals, Jd.vals
+    return Jc[nlp._jac_eq_rc_t], Jd[nlp._jac_in_rc_t]
+
+
+def _triplet_curvature(nlp, h_vals, Dx, Dd, p, dx, dd, neg_curv_fact) -> bool:
+    """dx'(H + Dx + delta_wx)dx + dd'(Dd + delta_wd)dd >= fact*||(dx,dd)||^2
+    with H applied through its upper triplets (test_direction,
+    hiopKKTLinSys.cpp), on host arrays."""
+    hr, hc = nlp.hess_rows, nlp.hess_cols
+    w = np.where(hr == hc, 1.0, 2.0)
+    quad = (
+        float(np.sum(w * h_vals * dx[hr] * dx[hc]))
+        + float(np.sum((Dx + p.delta_wx) * dx * dx))
+        + float(np.sum((Dd + p.delta_wd) * dd * dd))
+    )
+    return quad >= neg_curv_fact * float(dx @ dx + dd @ dd)
+
+
+class _SparseDirectStrategy:
+    """Host sparse-direct XDYcYd (or XYcYd) KKT (kkt/sparse_direct.py):
+    O(nnz) triplet assembly and a registry-selected sparse factorization
+    (``splu``, SuperLU in its no-pivot mode, plays the reference's MA57
+    role, hiopKKTLinSysCompressedSparseXDYcYd, hiopKKTLinSysSparse.hpp:133).
+    A backend that reports pivot-sign inertia (``native_ldl``; ``splu``
+    while its no-pivot mode holds) gets the reference's inertia-correction
+    acceptance (hiopFactAcceptorIC: n_neg must equal m_eq + m_ineq); an
+    inertia-less one the curvature test, each such factorization counted in
+    ``n_fact_no_inertia``.
+
+    Per iteration the host receives the Hessian and Jacobian triplet values
+    and the barrier diagonals in one copy, and the right-hand side in one;
+    the direction goes back in one."""
+
+    MAX_REFACT = 10
+
+    def __init__(self, nlp, logger, stats):
+        from hiop_tpu_torch.kkt.sparse_direct import SparseXDYcYdKKT, SparseXYcYdKKT
+
+        o = nlp.options
+        self.nlp = nlp
+        self.log = logger
+        self.stats = stats
+        self.perturb = make_perturbation(o, for_newton=True)
+        self.neg_curv_fact = o.num("neg_curv_test_fact")
+        self.inertia_free = o.str_("fact_acceptor") == "inertia_free"
+        name = o.str_("linear_solver_sparse")
+        self._solver_name = "splu" if name == "auto" else name
+        # xycyd selects the 3-block realization (shared acceptance: both
+        # linearizations expect m_eq + m_ineq negative eigenvalues)
+        self._kkt_cls = (
+            SparseXYcYdKKT if o.str_("KKTLinsys") == "xycyd" else SparseXDYcYdKKT
+        )
+        if self._solver_name == "device_ldl":
+            if self._kkt_cls is not SparseXYcYdKKT:
+                raise _not_ported(
+                    "linear_solver_sparse=device_ldl (DeviceSparseXDYcYdKKT)",
+                    "item 11b: device and matrix-free sparse KKT",
+                )
+            logger.printf(
+                Verbosity.WARNING,
+                "device_ldl supports the XDYcYd realization only; "
+                "demoting KKTLinsys=xycyd to the host splu backend",
+            )
+            self._solver_name = "splu"
+        self.kkt = self._kkt_cls(nlp, self._solver_name)
+        self._mu = 1.0
+        self._state = None
+        self._chronic_delta = 0
+
+    def _maybe_switch_to_inertia_backend(self) -> None:
+        """Chronic-regularization escalation for the sparse-direct path: an
+        inertia-less backend's curvature test over-regularizes structurally
+        indefinite problems (as the dense quick tier does, see
+        :func:`_maybe_escalate_chronic`). After 4 consecutive regularized
+        iterations on such a backend, rebuild on the pivot-sign inertia
+        backend (native_ldl, the MA57 role) so that delta_w can return to ~0
+        whenever the true reduced Hessian is PD."""
+        from hiop_tpu_torch.linalg import solver_registry
+
+        if self.perturb.delta_wx > 0.0:
+            self._chronic_delta += 1
+        else:
+            self._chronic_delta = 0
+        if (
+            self._chronic_delta >= 4
+            and self._solver_name != "native_ldl"
+            and solver_registry.has_solver("native_ldl")
+            # splu reports diag(U) pivot-sign inertia while its no-pivot
+            # symmetric mode holds; escalate only when the current backend
+            # is inertia-less (pivoted fallback in effect)
+            and self.kkt.last_inertia is None
+        ):
+            self._solver_name = "native_ldl"
+            self.kkt = self._kkt_cls(self.nlp, "native_ldl")
+            self._chronic_delta = 0
+            self.log.printf(
+                Verbosity.SCALARS,
+                "sparse KKT: chronic regularization (delta_w=%.2e for 4 "
+                "iters); switching to the pivot-sign inertia backend "
+                "(native_ldl)", self.perturb.delta_wx,
+            )
+
+    def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
+        self._maybe_switch_to_inertia_backend()
+        with self.stats.kkt.tm_update_init:
+            je, ji = _triplet_values(self.nlp, Jc, Jd)
+            h = self.nlp.eval_hess_vals(it.x, 1.0, it.yc, it.yd)
+            Dx, Dd = res_mod.barrier_diagonals(it, b)
+            self._state = _to_host(h, Dx, Dd, je, ji)
+        self.perturb.set_mu(float(mu))
+        self.perturb.compute_initial_deltas()
+        self._mu = float(mu)
+
+    def _curvature_ok(self, dx, dd) -> bool:
+        h_vals, Dx, Dd, _, _ = self._state
+        return _triplet_curvature(self.nlp, h_vals, Dx, Dd, self.perturb, dx, dd,
+                                  self.neg_curv_fact)
+
+    def compute_direction(self, resid, it: Iterate, b: Bounds):
+        rhs = _to_host(*res_mod.compress_rhs_xdycyd(resid, it, b))
+        h_vals, Dx, Dd, je_vals, ji_vals = self._state
+        n_corr = 0
+        for _ in range(self.MAX_REFACT):
+            p = self.perturb
+            deltas = (p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd)
+            with self.stats.kkt.tm_update_fact:
+                ok = self.kkt.factorize(h_vals, Dx, Dd, je_vals, ji_vals, deltas)
+            if ok:
+                with self.stats.kkt.tm_solve_inner:
+                    out = self.kkt.solve(*rhs)
+            if not ok or out is None:
+                n_corr += 1
+                self.stats.kkt.n_update_corrections = n_corr
+                if not self.perturb.compute_perturb_singularity():
+                    raise _StepComputationError("sparse-direct regularization exhausted")
+                continue
+            dx, dd, dyc, dyd = out
+            inert = self.kkt.last_inertia
+            if inert is None:
+                # the backend lost its inertia report (splu's pivoted
+                # fallback): a high count means the no-pivot symmetric mode
+                # does not hold on this problem's KKT structure
+                self.stats.kkt.n_fact_no_inertia += 1
+            if inert is not None and not self.inertia_free:
+                # inertia-correction acceptance (hiopFactAcceptorIC): the
+                # XDYcYd system must have exactly m_eq + m_ineq negative and
+                # n + m_ineq positive eigenvalues
+                npos, nneg, nzero = inert
+                if nzero > 0 or nneg != self.nlp.m_eq + self.nlp.m_ineq:
+                    n_corr += 1
+                    self.stats.kkt.n_update_corrections = n_corr
+                    # zero pivots signal a singular system (rank-deficient
+                    # Jacobian rows): the delta_c handler, not the delta_w
+                    # curve (hiopPDPerturbation's csingular vs cwrong split)
+                    ok_p = (
+                        self.perturb.compute_perturb_singularity()
+                        if nzero > 0
+                        else self.perturb.compute_perturb_wrong_inertia()
+                    )
+                    if not ok_p:
+                        raise _StepComputationError("inertia regularization exhausted")
+                    continue
+            elif not self._curvature_ok(dx, dd):
+                n_corr += 1
+                self.stats.kkt.n_update_corrections = n_corr
+                if not self.perturb.compute_perturb_wrong_inertia():
+                    raise _StepComputationError("curvature regularization exhausted")
+                continue
+            self.perturb.update_fact_ok()
+            dx, dd, dyc, dyd = _to_device(out, it.x)
+            return res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd), True
+        raise _StepComputationError("max refactorizations reached")
+
+    def solve_rhs(self, resid, it: Iterate, b: Bounds) -> Iterate:
+        out = self.kkt.solve(*_to_host(*res_mod.compress_rhs_xdycyd(resid, it, b)))
+        if out is None:
+            # hiop_tpu unpacks the None and fails outside the SOC/soft-FR
+            # handlers; here they treat it as "correction unavailable"
+            raise _StepComputationError("sparse-direct solve produced a non-finite direction")
+        dx, dd, dyc, dyd = _to_device(out, it.x)
+        return res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd)
+
+
+class _SparseFullStrategy:
+    """Sparse-direct solve of the UNREDUCED 12-block KKT for sparse NLPs
+    (hiopKKTLinSysSparseFull, hiopKKTLinSysSparse.hpp:202): O(nnz) triplet
+    assembly (kkt/full_space_sparse.py) and a nonsymmetric registry LU; no
+    dense (N, N) operator is ever formed. A nonsymmetric LU carries no
+    inertia, so acceptance is the inertia-free curvature test, the pairing
+    HiOp documents for its PARDISO-nonsym branch."""
+
+    MAX_REFACT = 10
+
+    def __init__(self, nlp, logger, stats):
+        from hiop_tpu_torch.kkt.full_space_sparse import SparseFullKKT
+        from hiop_tpu_torch.linalg import solver_registry
+
+        o = nlp.options
+        self.nlp = nlp
+        self.log = logger
+        self.stats = stats
+        self.perturb = make_perturbation(o, for_newton=True)
+        self.neg_curv_fact = o.num("neg_curv_test_fact")
+        name = o.str_("linear_solver_sparse")
+        name = "splu" if name == "auto" else name
+        if solver_registry.is_symmetric_only(name):
+            # a one-triangle LDL^T backend would silently factorize the
+            # symmetrized unreduced KKT and produce wrong directions; HiOp
+            # restricts this class to nonsymmetric solvers
+            # (hiopKKTLinSysSparse.cpp:845-849)
+            raise ValueError(
+                f"KKTLinsys=full requires a nonsymmetric-capable sparse solver; "
+                f"{name!r} is symmetric-only (set linear_solver_sparse=splu/auto)"
+            )
+        self.kkt = SparseFullKKT(nlp, name)
+        self._mu = 1.0
+        self._state = None
+
+    def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
+        with self.stats.kkt.tm_update_init:
+            je, ji = _triplet_values(self.nlp, Jc, Jd)
+            h = self.nlp.eval_hess_vals(it.x, 1.0, it.yc, it.yd)
+            Dx, Dd = res_mod.barrier_diagonals(it, b)
+            self._state = _to_host(h, je, ji, Dx, Dd)
+        self.perturb.set_mu(float(mu))
+        self.perturb.compute_initial_deltas()
+        self._mu = float(mu)
+
+    def compute_direction(self, resid, it: Iterate, b: Bounds):
+        h_vals, je_vals, ji_vals, Dx, Dd = self._state
+        n, mi = self.nlp.n, self.nlp.m_ineq
+        n_corr = 0
+        for _ in range(self.MAX_REFACT):
+            p = self.perturb
+            deltas = (p.delta_wx, p.delta_wd, p.delta_cc, p.delta_cd)
+            with self.stats.kkt.tm_update_fact:
+                ok = self.kkt.factorize(h_vals, je_vals, ji_vals, it, b, deltas)
+            if ok:
+                with self.stats.kkt.tm_solve_inner:
+                    dir_ = self.kkt.solve(resid)
+            if not ok or dir_ is None:
+                n_corr += 1
+                self.stats.kkt.n_update_corrections = n_corr
+                # an LU failure on the unreduced system can only signal
+                # (near-)singularity (no inertia): the delta_c handler
+                if not self.perturb.compute_perturb_singularity():
+                    raise _StepComputationError("full-KKT regularization exhausted")
+                continue
+            sol = self.kkt.last_solution
+            if not _triplet_curvature(self.nlp, h_vals, Dx, Dd, p, sol[:n],
+                                      sol[n:n + mi], self.neg_curv_fact):
+                n_corr += 1
+                self.stats.kkt.n_update_corrections = n_corr
+                if not self.perturb.compute_perturb_wrong_inertia():
+                    raise _StepComputationError("curvature regularization exhausted")
+                continue
+            self.perturb.update_fact_ok()
+            return dir_, True
+        raise _StepComputationError("max refactorizations reached")
+
+    def solve_rhs(self, resid, it: Iterate, b: Bounds) -> Iterate:
+        dir_ = self.kkt.solve(resid)
+        if dir_ is None:
+            # a non-finite LU solution: a handled step-computation failure
+            # (the SOC and soft-FR callers treat it as "correction
+            # unavailable"), not a None in fraction_to_the_boundary
+            raise _StepComputationError("full-KKT solve produced non-finite direction")
+        return dir_
 
 
 class _MdsStrategy:
@@ -1411,7 +1705,9 @@ class FilterIPMBase:
                 kkt_io.dump_kkt(
                     kkt_io.DUMP_PREFIX, self.iter_num,
                     H=getattr(strategy, "_H", None), Dx=Dx_dump, Dd=Dd_dump,
-                    Jc=Jc, Jd=Jd,
+                    # triplet handles are left out of the dumps, as in hiop_tpu
+                    Jc=None if isinstance(Jc, TripletMatrix) else Jc,
+                    Jd=None if isinstance(Jd, TripletMatrix) else Jd,
                     rx=resid.rx, rd=resid.rd, ryc=resid.ryc, ryd=resid.ryd,
                     dx=dir_.x, dd=dir_.d, dyc=dir_.yc, dyd=dir_.yd,
                     mu=np.asarray(mu),
@@ -1524,7 +1820,9 @@ class FilterIPMBase:
                     )
                     continue
                 fr = None
-                if not self.within_fr:
+                # hiop_tpu takes no nested restoration over triplet
+                # (matrix-free) Jacobians
+                if not self.within_fr and not isinstance(Jc, TripletMatrix):
                     fr = fr_mod.apply_feasibility_restoration(self, it_curr, mu, norms)
                 if fr is None:
                     if self.solver_status != SolveStatus.Infeasible_Problem:
@@ -1840,20 +2138,53 @@ class FilterIPMQuasiNewton(FilterIPMBase):
 
 
 class FilterIPMNewton(FilterIPMBase):
-    """IPM with exact second order (hiopAlgFilterIPMNewton, hpp:446). MDS
-    formulations take :class:`_MdsStrategy`, dense-constrained ones
-    :class:`_NewtonDenseStrategy` (decideAndCreateLinearSystem,
-    cpp:1848-1901); the sparse KKT classes are not ported yet."""
+    """IPM with exact second order (hiopAlgFilterIPMNewton, hpp:446).
+
+    The KKT class ladder (decideAndCreateLinearSystem, cpp:1848-1901), in
+    ``hiop_tpu``'s order: MDS formulations take :class:`_MdsStrategy`;
+    sparse ones :class:`_SparseFullStrategy` for ``KKTLinsys=full``, and
+    :class:`_SparseDirectStrategy` for a named registry solver or, with
+    ``linear_solver_sparse=auto``, from n + m = 2000 on; everything else the
+    dense :class:`_NewtonDenseStrategy` (the Hessian assembled from the
+    triplets for sparse problems). The two device sparse condensed classes
+    raise until ROADMAP.md item 11b."""
 
     def _make_strategy(self):
         from hiop_tpu_torch.formulation.dense import NlpDenseConstraints
         from hiop_tpu_torch.formulation.mds import NlpMDS
+        from hiop_tpu_torch.formulation.sparse import NlpSparse
 
-        if isinstance(self.nlp, NlpMDS):
-            return _MdsStrategy(self.nlp, self.log, self.nlp.runstats)
-        if isinstance(self.nlp, NlpDenseConstraints):
-            return _NewtonDenseStrategy(self.nlp, self.log, self.nlp.runstats)
+        nlp, o = self.nlp, self.opts
+        if isinstance(nlp, NlpMDS):
+            return _MdsStrategy(nlp, self.log, nlp.runstats)
+        sparse = isinstance(nlp, NlpSparse)
+        kkt = o.str_("KKTLinsys")
+        ls = o.str_("linear_solver_sparse")
+        item_11b = "item 11b: device and matrix-free sparse KKT"
+        if sparse and kkt == "condensed" and nlp.matrix_free:
+            raise _not_ported("KKTLinsys=condensed over matrix-free sparse Jacobians "
+                              "(_CondensedMatfreeStrategy)", item_11b)
+        if (
+            sparse and kkt == "condensed" and nlp.m_eq == 0
+            and (nlp.n >= 2000 or ls == "device_ldl")
+        ):
+            raise _not_ported("KKTLinsys=condensed over a sparse problem from n = 2000 "
+                              "(_CondensedSparseDeviceStrategy)", item_11b)
+        if sparse and kkt == "full":
+            return _SparseFullStrategy(nlp, self.log, nlp.runstats)
+        if sparse and kkt in ("auto", "xdycyd", "xycyd"):
+            from hiop_tpu_torch.linalg import solver_registry
+
+            if ls != "auto" and solver_registry.has_solver(ls):
+                return _SparseDirectStrategy(nlp, self.log, nlp.runstats)
+            # auto: above this size the dense XDYcYd assembly and
+            # factorization are O(N^2)/O(N^3) while the sparse-direct path
+            # is fill-limited (hiopKKTLinSysSparse.cpp)
+            if ls == "auto" and nlp.n + nlp.m_eq + nlp.m_ineq >= 2000:
+                return _SparseDirectStrategy(nlp, self.log, nlp.runstats)
+        if sparse or isinstance(nlp, NlpDenseConstraints):
+            return _NewtonDenseStrategy(nlp, self.log, nlp.runstats)
         raise _not_ported(
-            f"FilterIPMNewton over {type(self.nlp).__name__}",
-            "item 11: sparse and remaining KKT classes",
+            f"FilterIPMNewton over {type(nlp).__name__}",
+            "item 11b: the formulations and KKT classes still to port",
         )

@@ -17,8 +17,9 @@ solve as soon as the *original* infeasibility drops below kappa_resto times
 its entry value and the point is acceptable to the original filter.
 
 Evaluations run in torch on the base solve's device; index structures are
-built once with numpy. The sparse-base class (hiopFRProbSparse) needs the
-sparse formulation, which is not ported (ROADMAP.md section 1, item 11).
+built once with numpy. The FR problem keeps the base's structure class:
+dense-assembled for a dense-constrained base, triplets for a sparse one
+(hiopFRProbSparse), sparse and dense blocks for an MDS one.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ import numpy as np
 import torch
 
 from hiop_tpu_torch.formulation.base import to_numpy
-from hiop_tpu_torch.interface.base import INF, MdsProblem, NlpProblem
+from hiop_tpu_torch.interface.base import INF, MdsProblem, NlpProblem, SparseProblem
 from hiop_tpu_torch.status import SolveStatus
 from hiop_tpu_torch.utils.logger import Verbosity
 
@@ -189,6 +190,72 @@ class FeasibilityRestorationProblem(NlpProblem):
         return True
 
 
+class SparseFeasibilityRestorationProblem(FeasibilityRestorationProblem, SparseProblem):
+    """Sparse-preserving FR NLP (hiopFRProbSparse, hiopFRProb.hpp:87).
+
+    The FR Jacobian [J_base | -I | +I] and Hessian blkdiag(H_base +
+    zeta*D_R^2, 0) are posed in TRIPLET form against the base NlpSparse
+    formulation's static structure (nnz(J) + 2m and nnz(H) + n entries), so
+    the nested IPM routes through the sparse KKT strategies and never forms
+    the dense (m, n+2m) matrix of :class:`FeasibilityRestorationProblem`.
+
+    FR constraint rows are ordered [base eq rows; base ineq rows]; triplet
+    values come from the base formulation's scaled split evaluation, which
+    is also what :meth:`eval_cons` (inherited) returns."""
+
+    def __init__(self, base_form, x_ref, mu: float, nrmInf_feas_ref: float):
+        super().__init__(base_form, x_ref, mu, nrmInf_feas_ref)
+        b = base_form
+        nx, me, mi = self.n_x, self.m_eq, self.m_ineq
+        # base triplets in the split (eq-first) order of
+        # NlpSparse.eval_jac_vals_split
+        base_rows = np.concatenate([b.jac_eq_rows, me + b.jac_in_rows])
+        base_cols = np.concatenate([b.jac_eq_cols, b.jac_in_cols])
+        pn_rows = np.concatenate(
+            [np.arange(me), np.arange(me), me + np.arange(mi), me + np.arange(mi)]
+        )
+        pn_cols = nx + np.concatenate(
+            [
+                np.arange(me),                 # p_e
+                me + np.arange(me),            # n_e
+                2 * me + np.arange(mi),        # p_i
+                2 * me + mi + np.arange(mi),   # n_i
+            ]
+        )
+        self._fr_jr = np.concatenate([base_rows, pn_rows]).astype(np.int64)
+        self._fr_jc = np.concatenate([base_cols, pn_cols]).astype(np.int64)
+        self._pn_vals = torch.as_tensor(
+            np.concatenate([-np.ones(me), np.ones(me), -np.ones(mi), np.ones(mi)]),
+            device=self.device,
+        )
+        # Hessian upper triangle: base triplets + the x-diagonal proximal
+        # term (duplicates of existing diagonal entries scatter-add)
+        self._fr_hr = np.concatenate([b.hess_rows, np.arange(nx)]).astype(np.int64)
+        self._fr_hc = np.concatenate([b.hess_cols, np.arange(nx)]).astype(np.int64)
+
+    # -- SparseProblem structure surface ------------------------------------
+    def get_sparse_blocks_info(self):
+        return self.n, self._fr_jr.size, self._fr_hr.size
+
+    def jac_structure(self):
+        return self._fr_jr, self._fr_jc
+
+    def eval_jac_vals(self, z):
+        x, *_ = self._split(z)
+        vals_eq, vals_in = self.base.eval_jac_vals_split(x)
+        return torch.cat([vals_eq, vals_in, self._pn_vals.to(z.dtype)])
+
+    def hess_structure(self):
+        return self._fr_hr, self._fr_hc
+
+    def eval_hess_vals(self, z, obj_factor, lam):
+        x, *_ = self._split(z)
+        yc = lam[: self.m_eq]
+        yd = lam[self.m_eq:]
+        base_vals = self.base.eval_hess_vals(x, 0.0, yc, yd)
+        return torch.cat([base_vals, obj_factor * self.zeta * self.DR * self.DR])
+
+
 class MdsFeasibilityRestorationProblem(FeasibilityRestorationProblem, MdsProblem):
     """MDS-structured FR NLP (hiopFRProbMDS, hiopFRProb.hpp:238).
 
@@ -325,25 +392,31 @@ def apply_feasibility_restoration(solver, it_curr, mu, norms):
     Infeasible_Problem when the FR NLP converges to a point that is still
     infeasible.
 
-    The FR subproblem keeps the base formulation's structure class: an MDS
-    base gets :class:`MdsFeasibilityRestorationProblem` under ``NlpMDS``, a
+    The FR subproblem keeps the base formulation's structure class: a
+    sparse base gets :class:`SparseFeasibilityRestorationProblem` under
+    ``NlpSparse`` (triplet KKT), an MDS base
+    :class:`MdsFeasibilityRestorationProblem` under ``NlpMDS``, a
     dense-constrained base the dense-assembled FR problem under
     ``NlpDenseConstraints``."""
     from hiop_tpu_torch.formulation.dense import NlpDenseConstraints
     from hiop_tpu_torch.formulation.mds import NlpMDS
+    from hiop_tpu_torch.formulation.sparse import NlpSparse
     from hiop_tpu_torch.utils.options import NlpOptions
     import hiop_tpu_torch.optimization.filter_ipm as fi
 
     base = solver.nlp
     nrm_feas = float(norms.nlp_feasib)
-    if isinstance(base, NlpMDS):
+    if isinstance(base, NlpSparse):
+        fr_cls, form_cls = SparseFeasibilityRestorationProblem, NlpSparse
+    elif isinstance(base, NlpMDS):
         fr_cls, form_cls = MdsFeasibilityRestorationProblem, NlpMDS
     elif isinstance(base, NlpDenseConstraints):
         fr_cls, form_cls = FeasibilityRestorationProblem, NlpDenseConstraints
     else:
         raise fi._not_ported(
             f"feasibility restoration over {type(base).__name__}",
-            "item 11: the sparse formulation and its FR class",
+            "item 11b and later items: formulation classes beyond the "
+            "dense, MDS and sparse ones",
         )
     fr_prob = fr_cls(base, it_curr.x, mu, nrm_feas)
     fr_prob.orig_filter = solver.filter

@@ -127,8 +127,8 @@ def test_unported_solvers_and_formulations_raise():
 
 def test_restoration_over_an_unported_formulation_raises():
     """Feasibility restoration keeps the base's structure class; a base
-    that is neither MDS nor dense-constrained (the sparse formulation is
-    not ported) raises naming its ROADMAP item."""
+    that is neither MDS, dense-constrained nor sparse (here the bare
+    formulation base class) raises naming its ROADMAP item."""
     from types import SimpleNamespace
 
     from hiop_tpu_torch.optimization.fr_problem import apply_feasibility_restoration
