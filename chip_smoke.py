@@ -105,7 +105,32 @@ the script exits nonzero):
 22. forced restoration over sparse Ex1 at n = ``SPARSE_SMALL_N`` through
     ``SparseFeasibilityRestorationProblem``, at its saved objective;
     prints the nested iterations and whether the base accepted the nested
-    point.
+    point;
+23. the device sparse LDL^T alone (``linalg/sparse_device.py``) on sparse
+    Ex1's XDYcYd system at n = ``DEVICE_LDL_N`` (f32, three delta pairs)
+    and on the AcopfSparse B=``FULL_B`` pattern (f64): symbolic seconds,
+    levels, lnz, launches per numeric factorization and per solve sweep,
+    ms of each eager and replayed from its CUDA graph; the inertia is
+    (., m_eq + m_ineq, 0) unless pivots were clamped, a repeat gives the
+    same bits, the f64 pivots and inertia agree with the native host
+    LDL^T of the same permuted matrix to ``DEVICE_LDL_D_RTOL``, and a
+    certified solve has a relative residual under 1e-8;
+24. sparse Ex1 at n = ``SPARSE_N`` with ``linear_solver_sparse=device_ldl``
+    in f64 and with ``kkt_fact_dtype=float32``: ``SELFCHECK[SPARSE_N]``, no
+    fallback to SuperLU; iterations, s/iter, host syncs per iteration and
+    the device ms in the numeric factorizations and in the solves beside
+    phase 18's; the device's idle share of one profiled solve on each of
+    ``device_ldl`` and ``splu``;
+25. AcopfSparse with ``device_ldl``: B=256 to convergence at
+    ``SELFCHECK[256]``, B=``FULL_B`` capped at ``B512_MAX_ITER``; beside
+    phase 21's s/iter, with the peak memory;
+26. the condensed classes: sparse Ex1 at n = ``SPARSE_N`` with
+    ``KKTLinsys=condensed`` (the sparse condensed device class refuses the
+    pattern, and the dense condensed class runs, as in ``hiop_tpu``); the
+    sparse condensed device class forced at n = ``CONDENSED_DEVICE_N``,
+    capped; ``KKTLinsys=condensed linear_solver_sparse=cg`` at n = ``CG_N``
+    to the JAX package's objective test, with CG iterations and host syncs
+    per solve. Each of phases 24-26 checks the strategy class it runs.
 
 Each main-path phase sets the launch counts to zero just before each solve
 and reads them just after; phases 14-16 also read them around each nested
@@ -172,6 +197,25 @@ SPARSE_N = 5000
 #: phases 20 and 22: the size below n + m = 2000 at which the sparse
 #: examples take the dense Newton KKT (and its device safe tier)
 SPARSE_SMALL_N = 500
+
+
+#: phase 23: the device sparse LDL^T's scale proof, sparse Ex1's XDYcYd
+#: system at this n (ntot = 3 n - 3; tests/test_sparse_device.py:117-173 of
+#: the JAX package)
+DEVICE_LDL_N = 200_000
+
+#: phase 23: relative agreement of the card's f64 pivots with the native
+#: host LDL^T of the same permuted matrix
+DEVICE_LDL_D_RTOL = 1e-10
+
+#: phase 26: the matrix-free condensed size of the JAX package's test
+#: (tests/test_kkt_variants.py:143-150) and its objective test
+CG_N = 20000
+CG_OBJ, CG_OBJ_TOL = 1.10351e-01, 1e-4
+
+#: phase 26: the forced sparse condensed device class (sparse Ex1 below the
+#: densification threshold), capped: it does not converge, in hiop_tpu too
+CONDENSED_DEVICE_N, CONDENSED_DEVICE_ITERS = 500, 20
 
 
 def _log(*a) -> None:
@@ -992,7 +1036,8 @@ def _sparse_direct_log(filter_ipm):
     log = {"backend": [], "strategy": None, "factorize": 0.0, "solve": 0.0, "copies": 0.0}
     S = filter_ipm._SparseDirectStrategy
     prepare, to_host, to_device = S.prepare, filter_ipm._to_host, filter_ipm._to_device
-    saved = {(C, k): getattr(C, k) for C in (sd.SparseXDYcYdKKT, sd.SparseXYcYdKKT)
+    saved = {(C, k): getattr(C, k)
+             for C in (sd.SparseXDYcYdKKT, sd.SparseXYcYdKKT, sd.DeviceSparseXDYcYdKKT)
              for k in ("factorize", "solve")}
 
     def timed(key, f):
@@ -1226,6 +1271,369 @@ def phase_sparse(torch, dev) -> dict:
     return out
 
 
+def _launch_count(torch, fn, top: int = 0):
+    """Device operations (kernels, memsets, copies) that one eager call of
+    ``fn`` launches, counted by ``torch.profiler``; with ``top``, also the
+    ``top`` operation names with the most device time, as (name, count,
+    ms)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k, us = by_name.get(e.name, (0, 0.0))
+            by_name[e.name] = (k + 1, us + e.time_range.elapsed_us())
+    count = sum(k for k, _ in by_name.values())
+    if not top:
+        return count
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    return count, [(name[:60], k, us / 1e3) for name, (k, us) in ranked]
+
+
+def _busy_ms(torch, run):
+    """(device busy ms, wall s) of ``run()`` under ``torch.profiler``: the
+    summed durations of its device operations, and the host clock."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3, wall
+
+
+def _wall_ms(torch, fn, reps: int) -> float:
+    """Host milliseconds per call of ``fn`` over ``reps`` calls, ending in a
+    synchronize: a launch-bound program's time is the host's."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def _device_ldl_pattern(torch, dev, name, nlp, dtype, deltas_list, reps):
+    """Phase 23 on one pattern: the symbolic analysis, a ladder of
+    factorizations with the inertia check, bits of a repeat, the f64 pivots
+    against the native host LDL^T, launches and ms per numeric and per
+    solve sweep (eager and captured), a certified solve."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    from hiop_tpu_torch.kkt.sparse_direct import DeviceSparseXDYcYdKKT
+    from hiop_tpu_torch.linalg.sparse_device import equilibrate, read_factor_stats
+    from hiop_tpu_torch.native.ldl import NativeLdlFactorization
+
+    t0 = time.perf_counter()
+    kkt = DeviceSparseXDYcYdKKT(nlp)
+    t_sym = time.perf_counter() - t0
+    ldl = kkt._ldl
+    x0 = torch.as_tensor(nlp.get_starting_point(), dtype=torch.float64, device=dev)
+    yc = torch.zeros(nlp.m_eq, dtype=torch.float64, device=dev)
+    yd = torch.zeros(nlp.m_ineq, dtype=torch.float64, device=dev)
+    h = nlp.eval_hess_vals(x0, 1.0, yc, yd)
+    je, ji = nlp.eval_jac_vals_split(x0)
+    rng = np.random.default_rng(0)
+    Dx = torch.as_tensor(rng.uniform(0.05, 2.0, nlp.n), device=dev)
+    Dd = torch.as_tensor(rng.uniform(0.05, 2.0, nlp.m_ineq), device=dev)
+    m = nlp.m_eq + nlp.m_ineq
+    _log(f"  {name}: ntot {kkt.ntot}, symbolic {t_sym:.2f} s, levels {ldl.n_levels}, lnz {ldl.lnz}, "
+         f"update products {ldl.n_update_ops}, factor dtype {str(dtype).replace('torch.', '')}")
+    for dw, dc in deltas_list:
+        deltas = (dw, dw, dc, dc)
+        _check(kkt.factorize(h, Dx, Dd, je, ji, deltas), f"{name}: factorization failed at {deltas}")
+        inert = kkt.last_inertia
+        _log(f"    deltas (w {dw:g}, c {dc:g}): inertia {inert}" +
+             (" (pivots clamped: no inertia, solves IR-certified)" if inert is None else ""))
+        _check(inert is None or inert[1:] == (m, 0), f"{name}: inertia {inert}, expected (., {m}, 0)")
+    # a second factorization repeats the first bit for bit
+    vals = kkt.values_device(h, Dx, Dd, je, ji, deltas)
+    vs, _ = equilibrate(vals, kkt._rows_t, kkt._cols_t, kkt.ntot)
+    num = ldl.get_numeric(dtype)
+    f1, f2 = num(vs), num(vs)
+    torch.cuda.synchronize()
+    _check(torch.equal(f1.Lx, f2.Lx) and torch.equal(f1.d, f2.d), f"{name}: a repeat changed the factor")
+    ok, n_clamped, n_neg = read_factor_stats(f1)
+    # the card's f64 pivots and inertia against the native host LDL^T of the
+    # same permuted matrix (natural order after the device's permutation)
+    f64 = ldl.get_numeric(torch.float64)(vs)
+    A = sp.coo_matrix((vs.cpu().numpy(), (kkt._rows, kkt._cols)), shape=(kkt.ntot, kkt.ntot)).tocsc()
+    if ldl._perm is not None:
+        A = A[ldl._perm][:, ldl._perm]
+    host = NativeLdlFactorization(A, ordering="none")
+    d_rel = float(np.abs(f64.d.cpu().numpy() - host._D).max() / np.abs(host._D).max())
+    ok64, clamped64, neg64 = read_factor_stats(f64)
+    dev_inert = (kkt.ntot - neg64, neg64, 0)
+    _log(f"    f64 pivots vs the native host LDL^T: max rel diff {d_rel:.2e}; inertia card {dev_inert} "
+         f"(clamped {clamped64}), host {host.inertia()}")
+    _check(ok64 and clamped64 == 0 and d_rel <= DEVICE_LDL_D_RTOL and dev_inert == host.inertia(),
+           f"{name}: f64 pivots {d_rel:.2e} from the host's, inertia {dev_inert} vs {host.inertia()}")
+    # launches and ms: one eager numeric and solve sweep, and their graphs
+    b = torch.as_tensor(rng.standard_normal(kkt.ntot), device=dev)
+    solve = ldl.get_solve()
+    launches, top = _launch_count(torch, lambda: ldl._numeric(vs, dtype), top=4)
+    got = dict(ntot=kkt.ntot, symbolic_s=t_sym, levels=ldl.n_levels, lnz=ldl.lnz, update_ops=ldl.n_update_ops,
+               dtype=str(dtype).replace("torch.", ""), launches_numeric=launches, numeric_top=top,
+               launches_sweep=_launch_count(torch, lambda: ldl._solve(f1.Lx, f1.d, b)),
+               numeric_eager_ms=_wall_ms(torch, lambda: ldl._numeric(vs, dtype), reps),
+               numeric_graph_ms=_wall_ms(torch, lambda: num(vs), reps),
+               sweep_eager_ms=_wall_ms(torch, lambda: ldl._solve(f1.Lx, f1.d, b), reps),
+               sweep_graph_ms=_wall_ms(torch, lambda: solve(f1, b), reps))
+    _log(f"    launches per numeric {got['launches_numeric']}, per solve sweep {got['launches_sweep']}; ms per "
+         f"numeric eager {got['numeric_eager_ms']:.3f}, captured {got['numeric_graph_ms']:.3f}; per sweep eager "
+         f"{got['sweep_eager_ms']:.3f}, captured {got['sweep_graph_ms']:.3f}")
+    _log("    device time of one eager numeric by operation (count, ms): "
+         + "; ".join(f"{nm} x{k} {ms:.3f}" for nm, k, ms in top))
+    # one certified solve at the last factorization
+    rhs = [torch.as_tensor(rng.standard_normal(k), device=dev) for k in (nlp.n, nlp.m_ineq, nlp.m_eq, nlp.m_ineq)]
+    _check(kkt.factorize(h, Dx, Dd, je, ji, deltas), f"{name}: refactorization failed")
+    out = kkt.solve(*rhs)
+    _check(out is not None, f"{name}: the solve was not certified")
+    b = torch.cat(rhs)
+    rel = float(torch.linalg.vector_norm(b - kkt.coo_matvec(kkt._vals64, torch.cat(out)))
+                / torch.linalg.vector_norm(b))
+    _log(f"    certified solve: {kkt.last_ir_steps} refinement steps, relative residual {rel:.2e}")
+    _check(rel < 1e-8, f"{name}: relative residual {rel:.2e}")
+    return got
+
+
+def phase_device_sparse_ldl(torch, dev) -> dict:
+    """Phase 23: the device sparse LDL^T alone, at sparse Ex1's n=200 000
+    XDYcYd system (f32, three delta pairs) and the AcopfSparse B=512
+    pattern (f64)."""
+    from hiop_tpu_torch import NlpOptions, NlpSparse
+    from hiop_tpu_torch.examples import acopf_mds, sparse_ex1
+
+    out = {}
+    o = NlpOptions()
+    o.update(Hessian="analytical_exact", verbosity_level=0, linear_solver_sparse="device_ldl",
+             kkt_fact_dtype="float32")
+    nlp = NlpSparse(sparse_ex1.SparseEx1(DEVICE_LDL_N), o)
+    nlp.finalize_initialization()
+    name = f"sparse_ex1 n={DEVICE_LDL_N}"
+    out[name] = _device_ldl_pattern(torch, dev, name, nlp, torch.float32,
+                                    ((0.0, 1e-8), (1e-6, 1e-8), (1e-2, 1e-2)), 20)
+    nlp = NlpSparse(acopf_mds.AcopfSparse(FULL_B), acopf_mds.acopf_options(
+        verbosity_level=0, linear_solver_sparse="device_ldl"))
+    nlp.finalize_initialization()
+    name = f"acopf sparse B={FULL_B}"
+    out[name] = _device_ldl_pattern(torch, dev, name, nlp, torch.float64, ((1e-8, 1e-8), (1e-2, 1e-2)), 5)
+    return out
+
+
+@contextlib.contextmanager
+def _device_ldl_log(torch):
+    """CUDA-event milliseconds and counts of every numeric factorization
+    and solve sweep of the device sparse LDL^T while the context is open."""
+    from hiop_tpu_torch.linalg.sparse_device import DeviceSparseLDL
+
+    log = {"numeric": [], "sweep": []}
+    saved = {k: getattr(DeviceSparseLDL, k) for k in ("get_numeric", "get_solve")}
+
+    def timed(key, get):
+        def make(self, *a, **k):
+            fn = get(self, *a, **k)
+
+            def run(*args):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*args)
+                end.record()
+                log[key].append((start, end))
+                return out
+            return run
+        return make
+
+    DeviceSparseLDL.get_numeric = timed("numeric", saved["get_numeric"])
+    DeviceSparseLDL.get_solve = timed("sweep", saved["get_solve"])
+    try:
+        yield log
+    finally:
+        for k, f in saved.items():
+            setattr(DeviceSparseLDL, k, f)
+
+
+def _device_sparse_solve(torch, name, run, strategy_cls, check=None):
+    """One solve through the device sparse KKT with the launch counts at
+    zero, the strategy class, backends, syncs and device ms recorded."""
+    from hiop_tpu_torch.optimization import filter_ipm
+
+    made, stamps = [], []
+    make = filter_ipm.FilterIPMNewton._make_strategy
+
+    def kept(self):
+        t0 = time.perf_counter()
+        st = make(self)
+        made.append(st)
+        stamps.append(time.perf_counter() - t0)
+        prepare = st.prepare
+
+        def stamped(*a, **k):
+            stamps.append(time.perf_counter())
+            return prepare(*a, **k)
+
+        st.prepare = stamped
+        return st
+
+    filter_ipm.FilterIPMNewton._make_strategy = kept
+    t_end = []
+    try:
+        with _sparse_direct_log(filter_ipm) as log, _count_syncs(torch) as syncs, _device_ldl_log(torch) as dlog:
+            r, wall, got = _sparse_phase(torch, name, run, {})
+            t_end.append(time.perf_counter())
+    finally:
+        filter_ipm.FilterIPMNewton._make_strategy = make
+    classes = [type(m).__name__ for m in made]
+    _check(classes[:1] == [strategy_cls], f"{name}: strategy {classes}, expected {strategy_cls}")
+    its = max(r.iterations, 1)
+    torch.cuda.synchronize()
+    ms = {k: (len(v), sum(a.elapsed_time(b) for a, b in v)) for k, v in dlog.items()}
+    st = made[0]
+    # set-up: the strategy's construction (the symbolic analysis); steady:
+    # from the second iteration's start on (the first captures the graphs)
+    setup = stamps[0]
+    ticks = stamps[1:]
+    steady = (t_end[0] - ticks[1]) / (len(ticks) - 1) if len(ticks) > 2 else float("nan")
+    _log(f"  {name}: {r.status.name} after {r.iterations} iterations, {wall / its:.4f} s/iter "
+         f"({setup:.2f} s in the strategy's construction; {steady:.4f} s/iter from iteration 1 on); strategy "
+         f"{classes[0]}" + (f", backends by iteration {_runs(log['backend'])}" if log["backend"] else "") +
+         f"; host syncs per iteration {syncs['syncs'] / its:.2f}; device LDL^T numerics {ms['numeric'][0]} "
+         f"({ms['numeric'][1]:.1f} ms), solve sweeps {ms['sweep'][0]} ({ms['sweep'][1]:.1f} ms); "
+         + "".join(f"kernel {k} x{v} ({got['kernel_ms'].get(k, 0.0) / v:.3f} ms per launch); "
+                   for k, v in got["launches"].items())
+         + f"obj {r.obj!r}")
+    return r, dict(got, iterations=r.iterations, s_per_iter=wall / its, setup_s=setup, steady_s_per_iter=steady,
+                   syncs_per_iter=syncs["syncs"] / its,
+                   backends=list(log["backend"]), numerics=ms["numeric"], sweeps=ms["sweep"],
+                   strategy=classes[0], fallback=st.stats.kkt.n_device_ldl_fallback, wall=wall)
+
+
+def phase_device_sparse_solves(torch, dev) -> dict:
+    """Phases 24-26: whole solves through the device sparse KKT."""
+    from hiop_tpu_torch.examples import acopf_mds, sparse_ex1
+    from hiop_tpu_torch.kkt.condensed_matfree import CG_CHUNK
+    from hiop_tpu_torch.optimization import filter_ipm
+
+    out = {}
+    n = SPARSE_N
+    ref, tol = sparse_ex1.SELFCHECK[n]
+    _log(f"[24] sparse_ex1 n={n}, linear_solver_sparse=device_ldl (phase 18 on splu: 27 iterations, "
+         f"0.0723 s/iter, 17.44 host syncs per iteration)")
+    # in f32 the pivots clamp at small deltas (no inertia), and after 4
+    # regularized iterations the chronic rule switches to the host native
+    # LDL^T, as in hiop_tpu; under the default ordering ('auto': natural)
+    # its factorization of sparse Ex1 fills densely (35-42 s per
+    # factorization), so the f32 run orders with AMD, which the device
+    # LDL^T's 'auto' uses anyway
+    for label, opts in (("f64", {}), ("f32", dict(kkt_fact_dtype="float32", linear_solver_sparse_ordering="amd"))):
+        name = f"sparse_ex1 device_ldl {label}"
+        r, got = _device_sparse_solve(
+            torch, name, lambda: sparse_ex1.solve(n, verbosity_level=0, linear_solver_sparse="device_ldl", **opts),
+            "_SparseDirectStrategy")
+        _check(r.status.is_success and sparse_ex1.selfcheck_ok(r.obj, ref, tol),
+               f"{name}: {r.status.name}, obj {r.obj!r} vs saved {ref!r}")
+        _check(got["fallback"] == 0 and got["backends"][:1] == ["device_ldl"], f"{name}: backends {got['backends']}")
+        if label == "f64":
+            _check(set(got["backends"]) == {"device_ldl"}, f"{name}: backends {got['backends']}")
+        out[name] = got
+    # the device's idle share on the sparse path: one profiled solve on each
+    # sparse-direct backend (summed device operation time over the wall)
+    for ls in ("device_ldl", "splu"):
+        busy_ms, wall = _busy_ms(torch, lambda: sparse_ex1.solve(n, verbosity_level=0, linear_solver_sparse=ls))
+        _log(f"  sparse_ex1 {ls} under torch.profiler: device busy {busy_ms:.1f} ms of {wall * 1e3:.1f} ms, "
+             f"idle share {1.0 - busy_ms / (wall * 1e3):.3f}")
+        out[f"sparse_ex1 {ls} profile"] = dict(busy_ms=busy_ms, wall_s=wall, idle_share=1.0 - busy_ms / (wall * 1e3))
+
+    _log("[25] AcopfSparse with linear_solver_sparse=device_ldl (phase 21 on splu: B=256 in 123 iterations at "
+         "0.0436 s/iter; B=512 0.1281 s/iter)")
+    for B, cap in ((256, None), (FULL_B, B512_MAX_ITER)):
+        opts = dict(verbosity_level=0, sparse=True, linear_solver_sparse="device_ldl")
+        if cap:
+            opts["max_iter"] = cap
+        torch.cuda.reset_peak_memory_stats()
+        name = f"acopf sparse B={B} device_ldl"
+        r, got = _device_sparse_solve(torch, name, lambda: acopf_mds.solve(B, **opts), "_SparseDirectStrategy")
+        ref, tol = acopf_mds.SELFCHECK[B]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        _log(f"    max_memory_allocated {peak:.3f} GiB")
+        _check(got["fallback"] == 0 and got["backends"][:1] == ["device_ldl"], f"{name}: backends {got['backends']}")
+        _check(r.obj == r.obj and abs(r.obj) < float("inf"), f"{name}: objective {r.obj!r}")
+        if cap is None or r.status.is_success:
+            _check(r.status.is_success, f"{name}: status {r.status.name}")
+            _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)), f"{name}: obj {r.obj!r} vs {ref!r}")
+        out[name] = dict(got, peak_gib=peak)
+
+    _log(f"[26] the condensed classes: sparse_ex1 n={n} KKTLinsys=condensed; n={CONDENSED_DEVICE_N} with the "
+         f"sparse condensed device class forced; n={CG_N} KKTLinsys=condensed linear_solver_sparse=cg")
+    # from n = 2000 the strategy choice tries the sparse condensed device
+    # class, whose symbolic analysis refuses sparse Ex1 (the lower-only
+    # J^T D J pattern orders x_1 first: complete fill, over max_ops), and the
+    # dense condensed class takes over, in hiop_tpu too
+    ref, tol = sparse_ex1.SELFCHECK[n]
+    name = f"sparse_ex1 n={n} condensed"
+    r, got = _device_sparse_solve(
+        torch, name, lambda: sparse_ex1.solve(n, verbosity_level=0, KKTLinsys="condensed"), "_NewtonDenseStrategy")
+    _check(r.status.is_success and sparse_ex1.selfcheck_ok(r.obj, ref, tol),
+           f"{name}: {r.status.name}, obj {r.obj!r} vs saved {ref!r}")
+    out[name] = got
+    name = f"sparse_ex1 n={CONDENSED_DEVICE_N} condensed device (forced)"
+    make = filter_ipm.FilterIPMNewton._make_strategy
+    filter_ipm.FilterIPMNewton._make_strategy = lambda self: filter_ipm._CondensedSparseDeviceStrategy(
+        self.nlp, self.log, self.nlp.runstats)
+    try:
+        r, got = _device_sparse_solve(
+            torch, name, lambda: sparse_ex1.solve(CONDENSED_DEVICE_N, verbosity_level=0, KKTLinsys="condensed",
+                                                  max_iter=CONDENSED_DEVICE_ITERS),
+            "_CondensedSparseDeviceStrategy")
+    finally:
+        filter_ipm.FilterIPMNewton._make_strategy = make
+    _check(got["numerics"][0] > 0 and r.obj == r.obj, f"{name}: {got['numerics']} numerics, obj {r.obj!r}")
+    out[name] = got
+    name = f"sparse_ex1 n={CG_N} condensed cg"
+    S = filter_ipm._CondensedMatfreeStrategy
+    cg_solve, read_info, n_solves, cg_syncs = S._solve, filter_ipm._read_cg_info, [], [0]
+
+    def counted(self, *a):
+        with _count_syncs(torch) as c:
+            out = cg_solve(self, *a)
+        cg_syncs[0] += c["syncs"]
+        n_solves.append(out[3][2])  # the iteration count, read after the solve
+        return out
+
+    def read_counted(*a):
+        with _count_syncs(torch) as c:
+            out = read_info(*a)
+        cg_syncs[0] += c["syncs"]
+        return out
+
+    S._solve, filter_ipm._read_cg_info = counted, read_counted
+    try:
+        r, got = _device_sparse_solve(
+            torch, name, lambda: sparse_ex1.solve(CG_N, verbosity_level=0, KKTLinsys="condensed",
+                                                  linear_solver_sparse="cg"), "_CondensedMatfreeStrategy")
+    finally:
+        S._solve, filter_ipm._read_cg_info = cg_solve, read_info
+    k = max(len(n_solves), 1)
+    cg_its = int(sum(int(i) for i in n_solves))
+    _log(f"    {len(n_solves)} CG solves, {cg_its / k:.1f} CG iterations and {cg_syncs[0] / k:.2f} host syncs "
+         f"per solve (CG steps per host read: {CG_CHUNK}); "
+         f"|obj - {CG_OBJ}| = {abs(r.obj - CG_OBJ):.2e}")
+    _check(r.status.is_success and abs(r.obj - CG_OBJ) < CG_OBJ_TOL, f"{name}: {r.status.name}, obj {r.obj!r}")
+    out[name] = dict(got, cg_solves=len(n_solves), cg_iterations=cg_its, cg_syncs=cg_syncs[0])
+    return out
+
+
 def _why_rejected(torch, kkt_mds, rejected) -> str:
     """Which part of a rejected f32 device factorization's ``ok`` failed
     (a null K_s entry, a non-finite factor, pivots at or below
@@ -1384,6 +1792,10 @@ def main() -> int:
     _log("[17] checkpoints, write_kkt and deepchecks: mds_ex1 400/100")
     phase_aux(torch, r4)
     sparse = phase_sparse(torch, dev)
+    _log(f"[23] the device sparse LDL^T alone: sparse_ex1 n={DEVICE_LDL_N} (f32) and AcopfSparse "
+         f"B={FULL_B} (f64) patterns")
+    phase_device_sparse_ldl(torch, dev)
+    phase_device_sparse_solves(torch, dev)
 
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}

@@ -20,7 +20,9 @@ sparse-direct KKT (SuperLU); below it, the dense Newton KKT over the
 Hessian and Jacobian assembled from the triplets.
 
 Run: ``python -m hiop_tpu_torch.examples.sparse_ex1 5000 -selfcheck`` (on
-cuda:0; ``-cpu`` for the CPU; a second number is ``scal``).
+cuda:0; ``-cpu`` for the CPU; a second number is ``scal``; ``-device_ldl``
+for ``linear_solver_sparse=device_ldl``, ``-condensed`` for
+``KKTLinsys=condensed``).
 """
 
 from __future__ import annotations
@@ -132,6 +134,10 @@ def main(argv=None):
         opts["fact_acceptor"] = "inertia_free"
     if "-stable" in argv:
         opts["linsol_mode"] = "stable"
+    if "-device_ldl" in argv:
+        opts["linear_solver_sparse"] = "device_ldl"
+    if "-condensed" in argv:
+        opts["KKTLinsys"] = "condensed"
     r = solve(n, scal, **opts)
     print(f"Objective: {r.obj:.12e} status {r.status.name} iters {r.iterations}")
     if "-selfcheck" in argv:

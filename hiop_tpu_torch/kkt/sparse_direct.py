@@ -22,8 +22,10 @@ order and the CSC conversion are ``hiop_tpu``'s, so duplicates are summed
 in the same order and both packages hand SuperLU the same matrix (the same
 orderings, the same pivot signs).
 
-The device-resident ``DeviceSparseXDYcYdKKT`` waits for ROADMAP.md section
-1, item 11b.
+:class:`DeviceSparseXDYcYdKKT` (``linear_solver_sparse=device_ldl``) keeps
+the XDYcYd system on the solver's device: the symbolic analysis once on the
+host, every numeric factorization and solve on the device
+(:mod:`hiop_tpu_torch.linalg.sparse_device`); it takes and returns tensors.
 """
 
 from __future__ import annotations
@@ -32,6 +34,12 @@ import functools
 import inspect
 
 import numpy as np
+import torch
+
+from hiop_tpu_torch.linalg.sparse_device import (
+    DeviceSparseLDL, equilibrate, read_factor_stats, solve_refined,
+)
+from hiop_tpu_torch.linalg.vector_ops import scatter_add_
 
 
 def _factory(nlp, solver_name: str):
@@ -223,3 +231,132 @@ class SparseXYcYdKKT(_HostKKT):
         dyd = sol[n + me:]
         dd = self._dd_inv * (rd_t + dyd)
         return dx, dd, dyc, dyd
+
+
+class DeviceSparseXDYcYdKKT(SparseXDYcYdKKT):
+    """Device-resident numeric refactorization of the sparse XDYcYd
+    augmented system (``linear_solver_sparse=device_ldl``).
+
+    The ReSolve discipline (RefactorizationSolver.hpp:74): the symbolic
+    analysis (elimination tree, L pattern, level-scheduled op program) runs
+    once on the host through
+    :class:`~hiop_tpu_torch.linalg.sparse_device.DeviceSparseLDL`; every
+    numeric factorization of the regularization ladder (only the delta
+    scalars change) assembles the value vector on the device and runs the
+    level-scheduled numeric there, so a retry costs one host read of
+    ``(ok, n_clamped, n_neg)``. The values are equilibrated by a symmetric
+    row-max scaling first. With ``kkt_fact_dtype=float32`` the factors are
+    f32 and every solve is certified by f64 iterative refinement through
+    the device COO matvec (in f64 too); an uncertified solve returns None
+    and the strategy's singularity handler regularizes."""
+
+    def __init__(self, nlp, solver_name: str = "device_ldl"):
+        # the parent builds the static COO structure; it gets a real host
+        # factory (native_ldl) that it never uses
+        super().__init__(nlp, "native_ldl")
+        dev = nlp.device
+        self.device = dev
+        # ordering policy (linear_solver_sparse_ordering):
+        #   auto/amd -> unrestricted AMD (fill-optimal; interleaved dual
+        #     pivots can go tiny at small deltas, which the numeric's static
+        #     pivot clamping and the IR certification absorb);
+        #   qd_amd -> AMD restricted so that every primal column (x, d)
+        #     comes before any dual row: a strictly quasi-definite
+        #     elimination (stable without pivoting [Vanderbei], exact
+        #     inertia), at the cost of dual-Schur fill on non-local
+        #     structures;
+        #   rcm/none -> as named.
+        ordering = nlp.options.str_("linear_solver_sparse_ordering")
+        if ordering == "qd_amd":
+            import scipy.sparse as _sp
+
+            from hiop_tpu_torch.native import amd_ordering
+
+            S = _sp.coo_matrix(
+                (np.ones(self._rows.size), (self._rows, self._cols)),
+                shape=(self.ntot, self.ntot),
+            ).tocsr()
+            full_amd = np.asarray(
+                amd_ordering(self.ntot, np.asarray(S.indptr, np.int64),
+                             np.asarray(S.indices, np.int64)),
+                np.int64,
+            )
+            primal = full_amd < (self.n + self.m_ineq)
+            qd_perm = np.concatenate([full_amd[primal], full_amd[~primal]])
+            self._ldl = DeviceSparseLDL(self._rows, self._cols, self.ntot, perm=qd_perm, device=dev)
+        else:
+            self._ldl = DeviceSparseLDL(
+                self._rows, self._cols, self.ntot,
+                ordering={"auto": "amd"}.get(ordering, ordering), device=dev,
+            )
+        self._fact_dtype = (
+            torch.float32 if nlp.options.str_("kkt_fact_dtype") == "float32" else torch.float64
+        )
+        self._numeric = self._ldl.get_numeric(self._fact_dtype)
+        self._dev_solve = self._ldl.get_solve()
+        self._rows_t = torch.as_tensor(self._rows, device=dev)
+        self._cols_t = torch.as_tensor(self._cols, device=dev)
+        self._off_t = torch.as_tensor(np.flatnonzero(self._off), device=dev)
+        self._ir_tol = min(nlp.options.num("ir_inner_tol_min"), 1e-9)
+        self._factors = None
+        self._scale = None
+        self._vals64 = None
+        #: IR steps of the last certified solve
+        self.last_ir_steps = 0
+
+    def _f64(self, a):
+        return torch.as_tensor(a, dtype=torch.float64, device=self.device)
+
+    def values_device(self, hvals, Dx, Dd, je, ji, deltas):
+        """The COO value vector of the augmented system, on the device."""
+        dwx, dwd, dcc, dcd = (float(x) for x in deltas)
+        me, mi = self.m_eq, self.m_ineq
+        hv = self._f64(hvals)
+        full = functools.partial(torch.full, dtype=torch.float64, device=self.device)
+        je, ji = self._f64(je), self._f64(ji)
+        return torch.cat([
+            hv, hv[self._off_t],
+            self._f64(Dx) + dwx, self._f64(Dd) + dwd,
+            je, je, ji, ji,
+            full((2 * mi,), -1.0),
+            full((me,), -dcc),
+            full((mi,), -dcd),
+        ])
+
+    def coo_matvec(self, vals, x):
+        return scatter_add_(vals.new_zeros(self.ntot), self._rows_t, vals * x[self._cols_t])
+
+    def factorize(self, hvals, Dx, Dd, je_vals, ji_vals, deltas) -> bool:
+        """Assemble, equilibrate and factorize on the device; False when the
+        factorization is not finite."""
+        vals = self.values_device(hvals, Dx, Dd, je_vals, ji_vals, deltas)
+        vals_s, s = equilibrate(vals, self._rows_t, self._cols_t, self.ntot)
+        f = self._numeric(vals_s)
+        ok, n_clamped, n_neg = read_factor_stats(f)
+        if not ok:
+            self._factors = None
+            self.last_inertia = None
+            return False
+        self._factors = f
+        self._scale = s
+        self._vals64 = vals
+        if n_clamped > 0:
+            # statically clamped pivots: the factorization is of A + E and
+            # the pivot signs are unreliable; report no inertia (the strategy
+            # then takes the inertia-free curvature test) but keep the
+            # factors: the solves stay IR-certified
+            self.last_inertia = None
+        else:
+            self.last_inertia = (self.ntot - n_neg, n_neg, 0)
+        return True
+
+    def solve(self, rx_t, rd_t, ryc, ryd):
+        """(dx, dd, dyc, dyd) as tensors on the device, or None when IR
+        cannot certify the solution."""
+        n, me, mi = self.n, self.m_eq, self.m_ineq
+        rhs = torch.cat([self._f64(rx_t), self._f64(rd_t), self._f64(ryc), self._f64(ryd)])
+        sol, cert, self.last_ir_steps = solve_refined(
+            self._dev_solve, self._factors, self._scale, self.coo_matvec, self._vals64, rhs, self._ir_tol)
+        if not cert:
+            return None  # the strategy regularizes (singularity handler)
+        return sol[:n], sol[n:n + mi], sol[n + mi:n + mi + me], sol[n + mi + me:]

@@ -165,9 +165,9 @@ def _native_ldl_factory(A_csc, ordering: str = "auto"):
 register_solver("native_ldl", _native_ldl_factory, symmetric_only=True)
 
 # 'device_ldl' names the device-resident level-scheduled sparse LDL^T
-# (ROADMAP.md section 1, item 11b). The name is registered as in hiop_tpu,
-# because NlpSparse.matrix_free and FilterIPMNewton's strategy choice branch
-# on has_solver(); the strategies that would use it raise until item 11b,
-# and a generic caller that hands a csc matrix to its factory gets the
-# host native LDL^T, as in hiop_tpu.
+# (kkt/sparse_direct.DeviceSparseXDYcYdKKT over linalg/sparse_device). The
+# name is registered as in hiop_tpu, because NlpSparse.matrix_free and
+# FilterIPMNewton's strategy choice branch on has_solver(); the strategies
+# build the device class themselves, and a generic caller that hands a csc
+# matrix to its factory gets the host native LDL^T, as in hiop_tpu.
 register_solver("device_ldl", _native_ldl_factory, symmetric_only=True)

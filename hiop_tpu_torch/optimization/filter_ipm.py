@@ -21,9 +21,11 @@ low-rank KKT) for the quasi-Newton solver; :class:`_NewtonDenseStrategy`
 and BiCGStab refinement), :class:`_MdsStrategy` (the quick Cholesky
 tier and the safe ladder: the native bordered sparse LDL^T on the host,
 device no-pivot LDL^T, host LU + eigen inertia), and for sparse problems
-:class:`_SparseDirectStrategy` and :class:`_SparseFullStrategy` (host
-sparse factorizations of the triplet-assembled KKT) for the Newton
-solver. The
+:class:`_SparseDirectStrategy` (the triplet-assembled KKT factorized on the
+host, or with ``linear_solver_sparse=device_ldl`` on the device),
+:class:`_SparseFullStrategy`, and the condensed
+:class:`_CondensedSparseDeviceStrategy` and :class:`_CondensedMatfreeStrategy`
+for the Newton solver. The
 Newton strategies run in f64 or with ``kkt_fact_dtype=float32``: f32
 factorizations through the same kernels, each solve certified by f64
 FGMRES refinement (:mod:`hiop_tpu_torch.linalg.krylov`) under the
@@ -60,6 +62,7 @@ from hiop_tpu_torch.kkt import lowrank as kkt_lowrank
 from hiop_tpu_torch.kkt import mds as kkt_mds
 from hiop_tpu_torch.kkt import newton_dense as kkt_nd
 from hiop_tpu_torch.kkt import normal_eqn as kkt_ne
+from hiop_tpu_torch.kkt import sparse_direct as kkt_sd
 from hiop_tpu_torch.linalg import krylov
 from hiop_tpu_torch.linalg.sparse import TripletMatrix
 from hiop_tpu_torch.native import ldl as native_ldl
@@ -101,6 +104,10 @@ def _not_ported(what: str, item: str):
         f"{what} is not ported to hiop_tpu_torch yet (ROADMAP.md section 1, {item})"
     )
 
+
+#: the ROADMAP.md item that holds the formulation classes beyond the dense,
+#: MDS and sparse ones (batch_solve's parametric problems, PriDec's)
+_OTHER_FORMULATIONS = "item 14: the formulation classes of batching and decomposition"
 
 #: options whose non-default values need code the port does not have yet
 _UNPORTED_OPTIONS = (
@@ -707,6 +714,174 @@ def _triplet_curvature(nlp, h_vals, Dx, Dd, p, dx, dd, neg_curv_fact) -> bool:
     return quad >= neg_curv_fact * float(dx @ dx + dd @ dd)
 
 
+def _triplet_curvature_device(nlp, h_vals, Dx, Dd, p, dx, dd, neg_curv_fact) -> bool:
+    """:func:`_triplet_curvature` on the solver's device, with one host read."""
+    hr, hc = nlp._hess_rc_t
+    w = torch.where(hr == hc, 1.0, 2.0)
+    quad = (
+        (w * h_vals * dx[hr] * dx[hc]).sum()
+        + ((Dx + p.delta_wx) * dx * dx).sum()
+        + ((Dd + p.delta_wd) * dd * dd).sum()
+    )
+    quad, nrm2 = torch.stack([quad, dx @ dx + dd @ dd]).tolist()
+    return quad >= neg_curv_fact * nrm2
+
+
+class _CondensedMatfreeStrategy:
+    """Matrix-free condensed KKT for large sparse inequality-only NLPs:
+    triplet matvecs and Jacobi-preconditioned CG (kkt/condensed_matfree.py).
+    A CG negative-curvature breakdown plays the role of a failed Cholesky in
+    the regularization ladder."""
+
+    MAX_REFACT = 10
+
+    def __init__(self, nlp, logger, stats):
+        from hiop_tpu_torch.kkt import condensed_matfree as cmf
+
+        o = nlp.options
+        if nlp.m_eq > 0:
+            raise ValueError("condensed KKT requires an inequality-only NLP")
+        self.nlp = nlp
+        self.log = logger
+        self.stats = stats
+        self.perturb = make_perturbation(o, for_newton=True)
+        self.ops = cmf.build_ops(nlp.jac_in_rows, nlp.jac_in_cols, nlp.hess_rows,
+                                 nlp.hess_cols, nlp.n, nlp.m_ineq, nlp.device)
+        self.cg_maxit = max(o.integer("ir_inner_maxit") * 8, 400)
+        self.cg_tol_min = o.num("ir_inner_tol")
+        self._cg_solve = cmf.make_cg_solver(self.ops, maxit=self.cg_maxit)
+        self._mu = 1.0
+        self._state = None
+
+    def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
+        with self.stats.kkt.tm_update_init:
+            jd_vals = _jd_triplet_values(self.nlp, Jd, it.x)
+            h_vals = self.nlp.eval_hess_vals(it.x, 1.0, it.yc, it.yd)
+            Dx, Dd = res_mod.barrier_diagonals(it, b)
+            self._state = (jd_vals, h_vals, Dx, Dd)
+        self.perturb.set_mu(float(mu))
+        self.perturb.compute_initial_deltas()
+        self._mu = float(mu)
+
+    def _cg_tol(self):
+        return max(self.cg_tol_min, min(1e-8, 1e-2 * self._mu))
+
+    def _solve(self, rx_t, rd_t, ryd):
+        jd_vals, h_vals, Dx, Dd = self._state
+        p = self.perturb
+        return self._cg_solve(h_vals, jd_vals, Dx, Dd, rx_t, rd_t, ryd,
+                              p.delta_wx, p.delta_wd, p.delta_cd, self._cg_tol())
+
+    def compute_direction(self, resid, it: Iterate, b: Bounds):
+        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
+        n_corr = 0
+        for _ in range(self.MAX_REFACT):
+            with self.stats.kkt.tm_solve_inner:
+                dx, dd, dyd, (conv, neg, iters, _) = self._solve(rx_t, rd_t, ryd)
+                conv, neg, iters = _read_cg_info(conv, neg, iters)
+            self.stats.kkt.n_iter_refin_inner += iters
+            if neg or not conv:
+                n_corr += 1
+                self.stats.kkt.n_update_corrections = n_corr
+                if not self.perturb.compute_perturb_wrong_inertia():
+                    raise _StepComputationError("matrix-free regularization exhausted")
+                continue
+            self.perturb.update_fact_ok()
+            dir_ = res_mod.recover_direction(resid, it, b, dx, dd, torch.zeros_like(ryc), dyd)
+            return dir_, True
+        raise _StepComputationError("matrix-free CG failed to converge")
+
+    def solve_rhs(self, resid, it: Iterate, b: Bounds) -> Iterate:
+        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
+        dx, dd, dyd, _info = self._solve(rx_t, rd_t, ryd)
+        return res_mod.recover_direction(resid, it, b, dx, dd, torch.zeros_like(ryc), dyd)
+
+
+def _read_cg_info(conv, neg, iters):
+    """(converged, negative curvature, iterations) of a CG solve, in one
+    host read."""
+    conv, neg, iters = torch.stack([conv.to(torch.int64), neg.to(torch.int64), iters]).tolist()
+    return bool(conv), bool(neg), iters
+
+
+def _jd_triplet_values(nlp, Jd, x):
+    """The inequality Jacobian's triplet values: the handle's own in
+    matrix-free mode, else evaluated again (as hiop_tpu's condensed
+    strategies do: a gather out of the dense Jd would sum duplicates)."""
+    if isinstance(Jd, TripletMatrix):
+        return Jd.vals
+    return nlp.eval_jac_vals_split(x)[1]
+
+
+class _CondensedSparseDeviceStrategy:
+    """Sparse condensed KKT with device two-phase products
+    (kkt/condensed_sparse_device.py: hiopKKTLinSysCondensedSparse's CSR
+    machinery, hiopMatrixSparseCSR.hpp:116-261, with the SPD factorization
+    on the device sparse LDL^T in cuSOLVER-Cholesky's role). A non-SPD
+    factorization or an uncertified solve is a failed Cholesky: bump
+    delta_w and retry (the condensed ladder's semantics)."""
+
+    MAX_REFACT = 10
+
+    def __init__(self, nlp, logger, stats):
+        from hiop_tpu_torch.kkt.condensed_sparse_device import CondensedSparseDeviceKKT
+
+        if nlp.m_eq > 0:
+            raise ValueError("condensed KKT requires an inequality-only NLP")
+        self.nlp = nlp
+        self.log = logger
+        self.stats = stats
+        self.perturb = make_perturbation(nlp.options, for_newton=True)
+        self.kkt = CondensedSparseDeviceKKT(nlp)
+        self._mu = 1.0
+        self._state = None
+
+    def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
+        with self.stats.kkt.tm_update_init:
+            jd_vals = _jd_triplet_values(self.nlp, Jd, it.x)
+            h_vals = self.nlp.eval_hess_vals(it.x, 1.0, it.yc, it.yd)
+            Dx, Dd = res_mod.barrier_diagonals(it, b)
+            self._state = (h_vals, Dx, Dd, jd_vals)
+        self.perturb.set_mu(float(mu))
+        self.perturb.compute_initial_deltas()
+        self._mu = float(mu)
+
+    def _try_solve(self, rx_t, rd_t, ryd):
+        h_vals, Dx, Dd, jd_vals = self._state
+        p = self.perturb
+        with self.stats.kkt.tm_update_fact:
+            ok = self.kkt.factorize(h_vals, Dx, Dd, jd_vals, (p.delta_wx, p.delta_wd, p.delta_cd))
+        if not ok:
+            return None
+        with self.stats.kkt.tm_solve_inner:
+            return self.kkt.solve(rx_t, rd_t, ryd)
+
+    def compute_direction(self, resid, it: Iterate, b: Bounds):
+        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
+        n_corr = 0
+        for _ in range(self.MAX_REFACT):
+            out = self._try_solve(rx_t, rd_t, ryd)
+            if out is None:
+                n_corr += 1
+                self.stats.kkt.n_update_corrections = n_corr
+                if not self.perturb.compute_perturb_wrong_inertia():
+                    raise _StepComputationError("sparse condensed regularization exhausted")
+                continue
+            dx, dd, dyd = out
+            self.perturb.update_fact_ok()
+            dir_ = res_mod.recover_direction(resid, it, b, dx, dd, torch.zeros_like(ryc), dyd)
+            return dir_, True
+        raise _StepComputationError("sparse condensed factorization failed")
+
+    def solve_rhs(self, resid, it: Iterate, b: Bounds) -> Iterate:
+        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(resid, it, b)
+        out = self._try_solve(rx_t, rd_t, ryd)
+        if out is None:
+            raise _StepComputationError("sparse condensed solve failed")
+        dx, dd, dyd = out
+        return res_mod.recover_direction(resid, it, b, dx, dd, torch.zeros_like(ryc), dyd)
+
+
 class _SparseDirectStrategy:
     """Host sparse-direct XDYcYd (or XYcYd) KKT (kkt/sparse_direct.py):
     O(nnz) triplet assembly and a registry-selected sparse factorization
@@ -720,13 +895,15 @@ class _SparseDirectStrategy:
 
     Per iteration the host receives the Hessian and Jacobian triplet values
     and the barrier diagonals in one copy, and the right-hand side in one;
-    the direction goes back in one."""
+    the direction goes back in one. With ``linear_solver_sparse=device_ldl``
+    the KKT is :class:`~hiop_tpu_torch.kkt.sparse_direct.DeviceSparseXDYcYdKKT`
+    and everything stays on the device (the host splu KKT, counted in
+    ``n_device_ldl_fallback``, when its symbolic analysis refuses the
+    pattern)."""
 
     MAX_REFACT = 10
 
     def __init__(self, nlp, logger, stats):
-        from hiop_tpu_torch.kkt.sparse_direct import SparseXDYcYdKKT, SparseXYcYdKKT
-
         o = nlp.options
         self.nlp = nlp
         self.log = logger
@@ -739,21 +916,35 @@ class _SparseDirectStrategy:
         # xycyd selects the 3-block realization (shared acceptance: both
         # linearizations expect m_eq + m_ineq negative eigenvalues)
         self._kkt_cls = (
-            SparseXYcYdKKT if o.str_("KKTLinsys") == "xycyd" else SparseXDYcYdKKT
+            kkt_sd.SparseXYcYdKKT if o.str_("KKTLinsys") == "xycyd" else kkt_sd.SparseXDYcYdKKT
         )
+        self.kkt = None
         if self._solver_name == "device_ldl":
-            if self._kkt_cls is not SparseXYcYdKKT:
-                raise _not_ported(
-                    "linear_solver_sparse=device_ldl (DeviceSparseXDYcYdKKT)",
-                    "item 11b: device and matrix-free sparse KKT",
+            if self._kkt_cls is kkt_sd.SparseXYcYdKKT:
+                logger.printf(
+                    Verbosity.WARNING,
+                    "device_ldl supports the XDYcYd realization only; "
+                    "demoting KKTLinsys=xycyd to the host splu backend",
                 )
-            logger.printf(
-                Verbosity.WARNING,
-                "device_ldl supports the XDYcYd realization only; "
-                "demoting KKTLinsys=xycyd to the host splu backend",
-            )
-            self._solver_name = "splu"
-        self.kkt = self._kkt_cls(nlp, self._solver_name)
+                self._solver_name = "splu"
+            else:
+                try:
+                    self.kkt = kkt_sd.DeviceSparseXDYcYdKKT(nlp)
+                except ValueError as e:
+                    # the symbolic analysis refused the pattern (the fill and
+                    # op guards of linalg/sparse_device.py): fall back to the
+                    # host splu backend, as HiOp demotes an unavailable GPU
+                    # solver with a warning (hiopKKTLinSysSparse.cpp:277+)
+                    logger.printf(
+                        Verbosity.WARNING,
+                        "device_ldl symbolic analysis refused this pattern "
+                        "(%s); falling back to the host splu backend",
+                        str(e),
+                    )
+                    self._solver_name = "splu"
+                    stats.kkt.n_device_ldl_fallback += 1
+        if self.kkt is None:
+            self.kkt = self._kkt_cls(nlp, self._solver_name)
         self._mu = 1.0
         self._state = None
         self._chronic_delta = 0
@@ -791,24 +982,36 @@ class _SparseDirectStrategy:
                 "(native_ldl)", self.perturb.delta_wx,
             )
 
+    @property
+    def _on_device(self) -> bool:
+        """Whether the KKT lives on the solver's device (device_ldl): then the
+        values, right-hand sides and directions stay tensors there."""
+        return isinstance(self.kkt, kkt_sd.DeviceSparseXDYcYdKKT)
+
+    def _local(self, *tensors):
+        return list(tensors) if self._on_device else _to_host(*tensors)
+
     def prepare(self, it: Iterate, grad_f, Jc, Jd, b: Bounds, mu) -> None:
         self._maybe_switch_to_inertia_backend()
         with self.stats.kkt.tm_update_init:
             je, ji = _triplet_values(self.nlp, Jc, Jd)
             h = self.nlp.eval_hess_vals(it.x, 1.0, it.yc, it.yd)
             Dx, Dd = res_mod.barrier_diagonals(it, b)
-            self._state = _to_host(h, Dx, Dd, je, ji)
+            self._state = self._local(h, Dx, Dd, je, ji)
         self.perturb.set_mu(float(mu))
         self.perturb.compute_initial_deltas()
         self._mu = float(mu)
 
     def _curvature_ok(self, dx, dd) -> bool:
         h_vals, Dx, Dd, _, _ = self._state
-        return _triplet_curvature(self.nlp, h_vals, Dx, Dd, self.perturb, dx, dd,
-                                  self.neg_curv_fact)
+        curvature = _triplet_curvature_device if self._on_device else _triplet_curvature
+        return curvature(self.nlp, h_vals, Dx, Dd, self.perturb, dx, dd, self.neg_curv_fact)
+
+    def _direction(self, out, like):
+        return list(out) if self._on_device else _to_device(out, like)
 
     def compute_direction(self, resid, it: Iterate, b: Bounds):
-        rhs = _to_host(*res_mod.compress_rhs_xdycyd(resid, it, b))
+        rhs = self._local(*res_mod.compress_rhs_xdycyd(resid, it, b))
         h_vals, Dx, Dd, je_vals, ji_vals = self._state
         n_corr = 0
         for _ in range(self.MAX_REFACT):
@@ -858,17 +1061,17 @@ class _SparseDirectStrategy:
                     raise _StepComputationError("curvature regularization exhausted")
                 continue
             self.perturb.update_fact_ok()
-            dx, dd, dyc, dyd = _to_device(out, it.x)
+            dx, dd, dyc, dyd = self._direction(out, it.x)
             return res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd), True
         raise _StepComputationError("max refactorizations reached")
 
     def solve_rhs(self, resid, it: Iterate, b: Bounds) -> Iterate:
-        out = self.kkt.solve(*_to_host(*res_mod.compress_rhs_xdycyd(resid, it, b)))
+        out = self.kkt.solve(*self._local(*res_mod.compress_rhs_xdycyd(resid, it, b)))
         if out is None:
             # hiop_tpu unpacks the None and fails outside the SOC/soft-FR
             # handlers; here they treat it as "correction unavailable"
             raise _StepComputationError("sparse-direct solve produced a non-finite direction")
-        dx, dd, dyc, dyd = _to_device(out, it.x)
+        dx, dd, dyc, dyd = self._direction(out, it.x)
         return res_mod.recover_direction(resid, it, b, dx, dd, dyc, dyd)
 
 
@@ -2142,12 +2345,17 @@ class FilterIPMNewton(FilterIPMBase):
 
     The KKT class ladder (decideAndCreateLinearSystem, cpp:1848-1901), in
     ``hiop_tpu``'s order: MDS formulations take :class:`_MdsStrategy`;
-    sparse ones :class:`_SparseFullStrategy` for ``KKTLinsys=full``, and
+    sparse ones with ``KKTLinsys=condensed`` take
+    :class:`_CondensedMatfreeStrategy` over matrix-free Jacobians, and
+    :class:`_CondensedSparseDeviceStrategy` without equalities from
+    n = 2000 on (the dense condensed class when its symbolic analysis
+    refuses the pattern; ``linear_solver_sparse=device_ldl`` makes the
+    Jacobians matrix-free, so the CG class takes it first);
+    :class:`_SparseFullStrategy` for ``KKTLinsys=full``, and
     :class:`_SparseDirectStrategy` for a named registry solver or, with
     ``linear_solver_sparse=auto``, from n + m = 2000 on; everything else the
     dense :class:`_NewtonDenseStrategy` (the Hessian assembled from the
-    triplets for sparse problems). The two device sparse condensed classes
-    raise until ROADMAP.md item 11b."""
+    triplets for sparse problems). Another formulation class raises."""
 
     def _make_strategy(self):
         from hiop_tpu_torch.formulation.dense import NlpDenseConstraints
@@ -2160,16 +2368,25 @@ class FilterIPMNewton(FilterIPMBase):
         sparse = isinstance(nlp, NlpSparse)
         kkt = o.str_("KKTLinsys")
         ls = o.str_("linear_solver_sparse")
-        item_11b = "item 11b: device and matrix-free sparse KKT"
         if sparse and kkt == "condensed" and nlp.matrix_free:
-            raise _not_ported("KKTLinsys=condensed over matrix-free sparse Jacobians "
-                              "(_CondensedMatfreeStrategy)", item_11b)
+            return _CondensedMatfreeStrategy(nlp, self.log, nlp.runstats)
         if (
             sparse and kkt == "condensed" and nlp.m_eq == 0
+            # replace the dense materialization from the densification
+            # threshold on, or on request: HiOp's CSR condensed class
+            # (hiopKKTLinSysSparseCondensed.hpp:105)
             and (nlp.n >= 2000 or ls == "device_ldl")
         ):
-            raise _not_ported("KKTLinsys=condensed over a sparse problem from n = 2000 "
-                              "(_CondensedSparseDeviceStrategy)", item_11b)
+            try:
+                return _CondensedSparseDeviceStrategy(nlp, self.log, nlp.runstats)
+            except ValueError as e:
+                # the pair, fill or op guards refused the pattern: the
+                # dense condensed class
+                self.log.printf(
+                    Verbosity.SCALARS,
+                    "sparse condensed device path unavailable (%s); using "
+                    "the dense condensed realization", e,
+                )
         if sparse and kkt == "full":
             return _SparseFullStrategy(nlp, self.log, nlp.runstats)
         if sparse and kkt in ("auto", "xdycyd", "xycyd"):
@@ -2184,7 +2401,4 @@ class FilterIPMNewton(FilterIPMBase):
                 return _SparseDirectStrategy(nlp, self.log, nlp.runstats)
         if sparse or isinstance(nlp, NlpDenseConstraints):
             return _NewtonDenseStrategy(nlp, self.log, nlp.runstats)
-        raise _not_ported(
-            f"FilterIPMNewton over {type(nlp).__name__}",
-            "item 11b: the formulations and KKT classes still to port",
-        )
+        raise _not_ported(f"FilterIPMNewton over {type(nlp).__name__}", _OTHER_FORMULATIONS)

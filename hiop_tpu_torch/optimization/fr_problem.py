@@ -413,11 +413,8 @@ def apply_feasibility_restoration(solver, it_curr, mu, norms):
     elif isinstance(base, NlpDenseConstraints):
         fr_cls, form_cls = FeasibilityRestorationProblem, NlpDenseConstraints
     else:
-        raise fi._not_ported(
-            f"feasibility restoration over {type(base).__name__}",
-            "item 11b and later items: formulation classes beyond the "
-            "dense, MDS and sparse ones",
-        )
+        raise fi._not_ported(f"feasibility restoration over {type(base).__name__}",
+                             fi._OTHER_FORMULATIONS)
     fr_prob = fr_cls(base, it_curr.x, mu, nrm_feas)
     fr_prob.orig_filter = solver.filter
 

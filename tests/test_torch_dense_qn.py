@@ -19,7 +19,9 @@ and the objective to 1e-8 relative.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg  # noqa: F401  (loads scipy's BLAS before the thread limit)
 import torch
+from threadpoolctl import threadpool_limits
 
 import examples.dense_ex1 as jax_ex1
 import examples.dense_ex2 as jax_ex2
@@ -38,6 +40,15 @@ from hiop_tpu_torch.linalg.small_solve import solve_small
 # The matrices here are small: torch's intra-op thread pool costs more than it
 # gains, and its spinning threads slow the other test workers.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One OpenBLAS thread for numpy/scipy inside these tests: under six
+    pytest-xdist workers on an 8-core CPU, OpenBLAS's spinning threads starve
+    each other (tests/test_torch_sparse_solve.py). Lifted after each test."""
+    with threadpool_limits(limits=1):
+        yield
 
 TOL = 1e-12
 

@@ -11,7 +11,13 @@ card and without JAX they run alone:
 
 import numpy as np
 import pytest
+import scipy.linalg  # noqa: F401  (loads scipy's BLAS before the thread limit)
 import torch
+
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # a GPU host that runs this file's gpu tests may lack threadpoolctl
+    threadpool_limits = None
 
 from hiop_tpu_torch.linalg import cholesky as tchol
 from hiop_tpu_torch.linalg import kernels
@@ -20,6 +26,18 @@ from hiop_tpu_torch.linalg import ldl_blocked as tldl
 # The matrices here are small: torch's intra-op thread pool costs more than it
 # gains, and its spinning threads slow the other test workers.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One OpenBLAS thread for numpy/scipy inside these tests: under six
+    pytest-xdist workers on an 8-core CPU, OpenBLAS's spinning threads starve
+    each other (tests/test_torch_sparse_solve.py). Lifted after each test."""
+    if threadpool_limits is None:
+        yield
+        return
+    with threadpool_limits(limits=1):
+        yield
 
 TOL_CHOL = {np.float64: 1e-10, np.float32: 1e-3}
 

@@ -11,7 +11,9 @@ differ).
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import scipy.linalg  # noqa: F401  (loads scipy's BLAS before the thread limit)
 import torch
+from threadpoolctl import threadpool_limits
 
 from examples.acopf_mds import AcopfMds as JaxAcopf
 from hiop_tpu import NlpMDS as JaxMDS, NlpOptions as JaxOptions
@@ -24,6 +26,15 @@ from hiop_tpu_torch.utils.carry import to_tensor
 # The matrices here are small: torch's intra-op thread pool costs more than it
 # gains, and its spinning threads slow the other test workers.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One OpenBLAS thread for numpy/scipy inside these tests: under six
+    pytest-xdist workers on an 8-core CPU, OpenBLAS's spinning threads starve
+    each other (tests/test_torch_sparse_solve.py). Lifted after each test."""
+    with threadpool_limits(limits=1):
+        yield
 
 RTOL = 1e-10
 DELTAS = dict(delta_wx=1e-3, delta_wd=0.0, delta_cc=1e-8, delta_cd=0.0)

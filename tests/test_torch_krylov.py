@@ -13,12 +13,23 @@ every method stagnate, and both packages must report it not converged.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import scipy.linalg  # noqa: F401  (loads scipy's BLAS before the thread limit)
 import torch
+from threadpoolctl import threadpool_limits
 
 from hiop_tpu.linalg import krylov as jk
 from hiop_tpu_torch.linalg import krylov as tk
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One OpenBLAS thread for numpy/scipy inside these tests: under six
+    pytest-xdist workers on an 8-core CPU, OpenBLAS's spinning threads starve
+    each other (tests/test_torch_sparse_solve.py). Lifted after each test."""
+    with threadpool_limits(limits=1):
+        yield
 
 SIZES = (7, 3, 5, 4)          # the blocks of the tuple vector
 N = sum(SIZES)

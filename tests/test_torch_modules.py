@@ -4,7 +4,9 @@ JAX package, on seeded inputs passed as numpy arrays (CPU, f64)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import scipy.linalg  # noqa: F401  (loads scipy's BLAS before the thread limit)
 import torch
+from threadpoolctl import threadpool_limits
 
 from hiop_tpu.kkt import mds as jmds
 from hiop_tpu.linalg import ldl_blocked as jldl
@@ -26,6 +28,15 @@ from hiop_tpu_torch.utils.options import NlpOptions as TorchOptions
 # The matrices here are small: torch's intra-op thread pool costs more than it
 # gains, and its spinning threads slow the other test workers.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One OpenBLAS thread for numpy/scipy inside these tests: under six
+    pytest-xdist workers on an 8-core CPU, OpenBLAS's spinning threads starve
+    each other (tests/test_torch_sparse_solve.py). Lifted after each test."""
+    with threadpool_limits(limits=1):
+        yield
 
 N, MI, MC = 30, 10, 8
 

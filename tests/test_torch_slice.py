@@ -15,7 +15,9 @@ import subprocess
 import sys
 
 import pytest
+import scipy.linalg  # noqa: F401  (loads scipy's BLAS before the thread limit)
 import torch
+from threadpoolctl import threadpool_limits
 
 import examples.acopf_mds as jax_acopf
 import examples.mds_ex1 as jax_ex1
@@ -29,6 +31,15 @@ from hiop_tpu_torch.linalg import ldl_blocked
 # The matrices here are small: torch's intra-op thread pool costs more than it
 # gains, and its spinning threads slow the other test workers.
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _one_blas_thread():
+    """One OpenBLAS thread for numpy/scipy inside these tests: under six
+    pytest-xdist workers on an 8-core CPU, OpenBLAS's spinning threads starve
+    each other (tests/test_torch_sparse_solve.py). Lifted after each test."""
+    with threadpool_limits(limits=1):
+        yield
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -137,7 +148,7 @@ def test_restoration_over_an_unported_formulation_raises():
     o.update(compute_mode="cpu", verbosity_level=0)
     base = NlpFormulation(mds_ex1.MdsEx1(8, 4), o)
     solver = SimpleNamespace(nlp=base, filter=None, log=base.log)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 14"):
         apply_feasibility_restoration(solver, None, 0.1, SimpleNamespace(nlp_feasib=1.0))
 
 

@@ -5,17 +5,19 @@ CPU, in f64.
 route of the strategy choice (``hiop_tpu/optimization/filter_ipm.py``
 ``FilterIPMNewton._make_strategy``): the host sparse-direct XDYcYd and
 XYcYd KKT over ``splu`` and ``native_ldl`` (triplet Jacobians), the
-unreduced full-space KKT over ``splu``, and below n + m = 2000 the dense
-Newton KKT classes over the Hessian and Jacobian assembled from the
-triplets; forced restoration through ``SparseFeasibilityRestorationProblem``;
+unreduced full-space KKT over ``splu``, the device XDYcYd KKT
+(``device_ldl``, with its refusal fallback to ``splu``), the condensed
+classes (matrix-free CG, the sparse condensed device class), and below
+n + m = 2000 the dense Newton KKT classes over the Hessian and Jacobian
+assembled from the triplets; forced restoration through ``SparseFeasibilityRestorationProblem``;
 ``FilterIPMQuasiNewton`` over ``NlpSparse``. The standard: the same status,
 the same iteration count, the objective to 1e-8 relative, and the same
 sparse-direct backends and inertia reports in the same order.
 
-Two examples are decided by rounding, in ``hiop_tpu`` itself, and their
+Some runs are decided by rounding, in ``hiop_tpu`` itself, and their
 tests hold every decision up to that point (each test says where):
-sparse Ex3's maximally rank-deficient LP, and ACOPF through the sparse
-interface on the dense route at B=16.
+sparse Ex3's maximally rank-deficient LP, ACOPF through the sparse
+interface at B=16, and the matrix-free CG on sparse Ex1.
 """
 
 import os
@@ -70,7 +72,8 @@ def _log(fi, fr):
     problem class of each nested restoration."""
     log = {"dir": [], "ls": [], "fr": []}
     patches = []
-    for S in (fi._SparseDirectStrategy, fi._SparseFullStrategy, fi._NewtonDenseStrategy):
+    for S in (fi._SparseDirectStrategy, fi._SparseFullStrategy, fi._NewtonDenseStrategy,
+              fi._CondensedMatfreeStrategy, fi._CondensedSparseDeviceStrategy):
         def compute(self, *a, _orig=S.compute_direction, **k):
             out = _orig(self, *a, **k)
             log["dir"].append((type(self).__name__, getattr(self, "_solver_name", None),
@@ -97,8 +100,9 @@ def _log(fi, fr):
     return log, patches
 
 
-def _solve(pkg, name, **opts):
-    jmod, tmod, args = EXAMPLES[name]
+def _solve(pkg, name, args=None, **opts):
+    jmod, tmod, default_args = EXAMPLES[name]
+    args = default_args if args is None else args
     fi, fr = (jfi, jfr) if pkg is hiop_tpu else (tfi, tfr)
     if pkg is hiop_tpu_torch:
         opts = dict(compute_mode="cpu", **opts)
@@ -173,6 +177,11 @@ RUNS = {
     # device_ldl has no XYcYd realization: hiop_tpu demotes it to splu
     "ex1_xycyd_device_ldl": ("ex1", dict(KKTLinsys="xycyd", linear_solver_sparse="device_ldl"),
                              "_SparseDirectStrategy"),
+    # a registered linear_solver_sparse makes the Jacobian matrix-free, and
+    # KKTLinsys=condensed over matrix-free Jacobians is the CG class, which
+    # hiop_tpu's strategy choice tests first
+    "ex1_condensed_device_ldl": ("ex1", dict(KKTLinsys="condensed", linear_solver_sparse="device_ldl"),
+                                 "_CondensedMatfreeStrategy"),
     "ex1_full": ("ex1", dict(KKTLinsys="full"), "_SparseFullStrategy"),
     "ex1_normaleqn": ("ex1", dict(KKTLinsys="normaleqn"), "_NewtonDenseStrategy"),
     "ex1_condensed": ("ex1", dict(KKTLinsys="condensed"), "_NewtonDenseStrategy"),
@@ -326,11 +335,141 @@ def test_collapsed_line_search_skips_nested_restoration_over_triplets(ls):
     (dict(KKTLinsys="condensed", n=2000), "_CondensedSparseDeviceStrategy"),
 ])
 def test_device_sparse_classes_raise_naming_item_11b(opts, what):
+    """The three routes that raised until the device sparse KKT was ported
+    now run, and choose what hiop_tpu chooses for the same options.
+
+    - ``device_ldl`` at n=50: the device XDYcYd KKT every iteration, with
+      hiop_tpu's inertia reports and decisions, status, iterations and
+      objective.
+    - ``condensed`` with ``cg`` at n=200: the matrix-free CG class. Its first
+      solve cancels a right-hand side of norm ~1e11, and hiop_tpu itself
+      takes 22, 22, 23 and 23 iterations when its first rx is scaled by 1,
+      1 + 1e-15, 1 - 1e-15 and 1 + 1e-14 (objectives 5e-9 apart); the port
+      takes 23 (1 - 1e-15's objective to 5e-14). So: every decision while the
+      line-search inputs agree to 1e-6, then the status and the objective
+      to 1e-8.
+    - ``condensed`` at n=2000: the sparse condensed device class is tried
+      and refuses the pattern in both packages (the J^T D J product entries
+      are lower-only, so the AMD ordering sees x_1's dense column in one
+      triangle and puts x_1 first: complete fill, an update-op count over
+      ``max_ops``), and the dense condensed class takes over; the strategy
+      choice is compared, not the 30-iteration dense solve."""
     opts = dict(opts)
-    n = opts.pop("n", 50)
-    with pytest.raises(NotImplementedError, match="item 11b") as e:
-        sparse_ex1.solve(n, verbosity_level=0, compute_mode="cpu", **opts)
-    assert what in str(e.value)
+    n = opts.pop("n", 200 if "cg" in opts.values() else 50)
+    if n == 2000:
+        made = []
+        for pkg, fi, ex, kw in ((hiop_tpu, jfi, jax_ex1, {}),
+                                (hiop_tpu_torch, tfi, sparse_ex1, dict(compute_mode="cpu"))):
+            o = pkg.NlpOptions()
+            o.update(Hessian="analytical_exact", verbosity_level=0, **opts, **kw)
+            nlp = pkg.NlpSparse(ex.SparseEx1(n), o)
+            nlp.finalize_initialization()
+            with pytest.raises(ValueError, match="update-op count 1333333000 exceeds") as e:
+                getattr(fi, what)(nlp, nlp.log, nlp.runstats)
+            made.append((type(fi.FilterIPMNewton(nlp)._make_strategy()).__name__, str(e.value)))
+        assert made[1] == made[0] and made[0][0] == "_NewtonDenseStrategy"
+        return
+    rj, lj = _solve(hiop_tpu, "ex1", (n,), **opts)
+    rt, lt = _solve(hiop_tpu_torch, "ex1", (n,), **opts)
+    assert rt.status.is_success and rt.status.name == rj.status.name
+    assert abs(rt.obj - rj.obj) <= 1e-8 * abs(rj.obj)
+    if what == "DeviceSparseXDYcYdKKT":
+        assert rt.iterations == rj.iterations
+        assert {d[:2] for d in lt["dir"]} == {("_SparseDirectStrategy", "device_ldl")}
+        assert lt["dir"] == lj["dir"]
+        _assert_same_decisions(lt, lj)
+    else:
+        assert {d[0] for d in lt["dir"]} == {d[0] for d in lj["dir"]} == {what}
+        k = _parting(lt, lj)
+        assert [e[0] for e in lt["ls"][:k]] == [e[0] for e in lj["ls"][:k]]
+
+
+def test_device_ldl_f32_solve_matches_jax():
+    """device_ldl with kkt_fact_dtype=float32 at n=50: f32 factors, every
+    solve certified by f64 refinement. The two packages' f32 factors round
+    differently (ROADMAP.md section 3), so the status and the objective."""
+    opts = dict(linear_solver_sparse="device_ldl", kkt_fact_dtype="float32")
+    rj, lj = _solve(hiop_tpu, "ex1", **opts)
+    rt, lt = _solve(hiop_tpu_torch, "ex1", **opts)
+    assert rt.status.name == rj.status.name and rt.status.name in ("Solve_Success", "Solve_Acceptable_Level")
+    assert abs(rt.obj - rj.obj) <= 1e-8 * abs(rj.obj)
+    assert {d[:2] for d in lt["dir"]} == {("_SparseDirectStrategy", "device_ldl")}
+
+
+#: iterations of the forced sparse condensed device class on sparse Ex1
+CONDENSED_DEVICE_ITERS = 20
+
+
+def test_condensed_sparse_device_solve_matches_jax():
+    """The sparse condensed device class over a solve (sparse Ex1, n=50, the
+    class forced in both packages: below n = 2000 the strategy choice takes
+    the dense condensed class), capped at ``CONDENSED_DEVICE_ITERS``
+    iterations: the same factorizations, decisions, status and objective.
+
+    Uncapped, neither package converges (Max_Iter_Exceeded after 3000
+    iterations, the same objective): the AMD ordering of the lower-only
+    product pattern eliminates x_1 first, one later pivot cancels below the
+    static-pivot threshold at most factorizations, the SPD acceptance
+    rejects every clamped factorization, and delta_w climbs to 1e4-5e5."""
+    runs = []
+    for pkg, fi in ((hiop_tpu, jfi), (hiop_tpu_torch, tfi)):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(fi.FilterIPMNewton, "_make_strategy",
+                       lambda self, fi=fi: fi._CondensedSparseDeviceStrategy(self.nlp, self.log,
+                                                                             self.nlp.runstats))
+            runs.append(_solve(pkg, "ex1", KKTLinsys="condensed", max_iter=CONDENSED_DEVICE_ITERS))
+    (rj, lj), (rt, lt) = runs
+    assert rt.status.name == "Max_Iter_Exceeded"
+    _assert_same_solve(rt, rj)
+    assert lt["dir"] and {d[0] for d in lt["dir"]} == {"_CondensedSparseDeviceStrategy"}
+    assert lt["dir"] == lj["dir"]
+    assert [e[0] for e in lt["ls"]] == [e[0] for e in lj["ls"]]
+
+
+def test_acopf16_device_ldl_matches_jax_until_rounding_decides():
+    """AcopfSparse(16) through device_ldl amplifies rounding as its splu
+    route does (test_acopf16_sparse_matches_jax_until_rounding_decides):
+    every decision while the line-search inputs agree to 1e-6 (the 15th of
+    42 tests here), and the runs end alike: the same status and iterations,
+    the objective to 1e-8."""
+    opts = dict(linear_solver_sparse="device_ldl")
+    rj, lj = _solve(hiop_tpu, "acopf16", **opts)
+    rt, lt = _solve(hiop_tpu_torch, "acopf16", **opts)
+    assert rt.status.is_success
+    _assert_same_solve(rt, rj)
+    assert {d[:2] for d in lt["dir"]} == {("_SparseDirectStrategy", "device_ldl")}
+    k = _parting(lt, lj)
+    assert k >= 12
+    assert [e[0] for e in lt["ls"][:k]] == [e[0] for e in lj["ls"][:k]]
+    assert lt["dir"][:k] == lj["dir"][:k]
+
+
+def test_device_ldl_refusal_falls_back_to_splu_like_jax():
+    """The symbolic analysis refuses the pattern (max_ops = 1): both packages
+    warn, build the host splu KKT, count the fallback, and solve alike."""
+    import functools
+
+    import hiop_tpu.linalg.sparse_device as jsdev
+    import hiop_tpu_torch.kkt.sparse_direct as tsd
+
+    out = []
+    for pkg, fi, ex, kw, mod in ((hiop_tpu, jfi, jax_ex1, {}, jsdev),
+                                 (hiop_tpu_torch, tfi, sparse_ex1, dict(compute_mode="cpu"), tsd)):
+        o = pkg.NlpOptions()
+        o.update(Hessian="analytical_exact", verbosity_level=0, linear_solver_sparse="device_ldl", **kw)
+        nlp = pkg.NlpSparse(ex.SparseEx1(50), o)
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(mod, "DeviceSparseLDL", functools.partial(mod.DeviceSparseLDL, max_ops=1))
+            alg = pkg.FilterIPMNewton(nlp)
+            strategies = []
+            make = alg._make_strategy
+            alg._make_strategy = lambda: strategies.append(make()) or strategies[-1]
+            r = alg.run()
+        out.append((r, strategies[0]._solver_name, nlp.runstats.kkt.n_device_ldl_fallback))
+    (rj, sj, fj), (rt, st, ft) = out
+    assert rt.status.is_success
+    _assert_same_solve(rt, rj)
+    assert (st, ft) == (sj, fj) == ("splu", 1)
 
 
 def test_full_kkt_refuses_a_symmetric_only_solver_like_jax():
