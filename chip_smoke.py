@@ -130,13 +130,33 @@ the script exits nonzero):
     sparse condensed device class forced at n = ``CONDENSED_DEVICE_N``,
     capped; ``KKTLinsys=condensed linear_solver_sparse=cg`` at n = ``CG_N``
     to the JAX package's objective test, with CG iterations and host syncs
-    per solve. Each of phases 24-26 checks the strategy class it runs.
+    per solve. Each of phases 24-26 checks the strategy class it runs;
+27. the fused modes in ACOPF's production options (``bench_subs.py``:
+    ``jit_mode=solve``, ``kkt_fact_dtype=float32``,
+    ``linear_solver_dense=ldl_nopiv``, ``mp_schedule=adaptive``), capped at
+    ``FUSED_MAX_ITER``: B=256 at ``SELFCHECK[256]``, B=``FULL_B`` at
+    ``SELFCHECK[512]`` if it converges (a finite objective either way);
+    the f32 LDL^T launches at the padded saddle size and the f64
+    refactorizations, the f32 fraction, the history's mean ladder
+    refactorizations, IR steps and SOC rounds per iteration, s/iter, host
+    reads per iteration and peak memory;
+28. the same B=``FULL_B`` options under ``jit_mode=kernels``, ``iteration``
+    and ``solve``, each capped at ``MODES_MAX_ITER``: s/iter, host reads
+    per iteration, kernel launches and the device's idle share of one
+    profiled solve;
+29. the fused modes on the other paths beside ``jit_mode=kernels`` in the
+    same call: ``mds_ex1`` 400/100 under ``iteration`` and ``solve`` (the
+    Cholesky quick tier, at ``SELFCHECK_OBJ``), dense Newton ex2 at
+    n = ``NEWTON_N`` and QN ``dense_ex1`` at n = ``QN_N`` under ``solve``,
+    at their saved objectives: iterations, s/iter, host reads per
+    iteration and the idle share of one profiled solve.
 
 Each main-path phase sets the launch counts to zero just before each solve
 and reads them just after; phases 14-16 also read them around each nested
 FR solve (``fr_path_launches`` in the ``kernels`` line) and time the
 kernels there (``fr_path_kernel_ms``); phases 18-22 give theirs as
-``sparse_path_launches`` and ``sparse_path_kernel_ms``. The last three lines of
+``sparse_path_launches`` and ``sparse_path_kernel_ms``, phases 27-29 as
+``fused_path_launches``. The last three lines of
 standard output are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
@@ -1695,6 +1715,175 @@ def _solve_phase(torch, name: str, run, need: dict):
     return r, wall, launches, sizes
 
 
+#: phase 27: the iteration cap of the production solves (B=512 took
+#: 316-349 iterations on the ldl_nopiv-only f64 ladder, PERF.md section 5)
+FUSED_MAX_ITER = 600
+#: phase 28: the iteration cap of the three-mode comparison at B=512
+MODES_MAX_ITER = 25
+#: phase 27: the ACOPF sizes, the first to convergence
+FUSED_B = (256, FULL_B)
+#: phase 29: mds_ex1 400/100's objective in the fused modes, as hiop_tpu's
+#: fused modes reach it on the CPU (15 iterations, err_nlp 2.77e-6): one
+#: barrier reduction per iteration stops them at the example's tolerance
+#: 1e-5 before SELFCHECK_OBJ (14 iterations through the general loop)
+MDS_EX1_FUSED_OBJ = -49.99471704279668
+
+
+def _counted_solve(torch, name, build, need):
+    """One solve through the fused modes (or the general loop) with the
+    launch counts at zero and the host reads counted. ``build()`` returns
+    (solver, formulation). Returns (result, wall, sizes, reads, solver)."""
+    holder = {}
+
+    def run():
+        holder["solver"] = build()[0]
+        return holder["solver"].run()
+
+    with _count_syncs(torch) as syncs:
+        r, wall, _, sizes = _solve_phase(torch, name, run, need)
+    return r, wall, sizes, syncs["syncs"], holder["solver"]
+
+
+def _acopf_solver(B, **opts):
+    from hiop_tpu_torch import FilterIPMNewton, NlpMDS
+    from hiop_tpu_torch.examples import acopf_mds
+
+    def build():
+        nlp = NlpMDS(acopf_mds.AcopfMds(B), acopf_mds.acopf_options(verbosity_level=0, **opts))
+        return FilterIPMNewton(nlp), nlp
+
+    return build
+
+
+def _ms_per_launch(torch, K) -> dict:
+    """Mean CUDA-event milliseconds per launch by (kernel, n, dtype) over
+    the launches recorded since the counts were reset."""
+    torch.cuda.synchronize()
+    acc: dict = {}
+    for name, n, dname, s, e in K.stats.events:
+        key = f"{name}:{n}:{dname}"
+        k, ms = acc.get(key, (0, 0.0))
+        acc[key] = (k + 1, ms + s.elapsed_time(e))
+    return {key: ms / k for key, (k, ms) in sorted(acc.items())}
+
+
+def _hist_means(solver, its):
+    """Per-iteration means of the fused history's phase counters."""
+    h = getattr(solver, "_last_fused_hist", None)
+    if h is None:
+        return {}
+    rows = h[: its + 1]
+    return {"n_refact": float(rows[:, 12].mean()), "ir_primary": float(rows[:, 13].mean()),
+            "soc_rounds": float(rows[:, 14].mean()), "f32_share": float(h[:its, 10].mean()) if its else 0.0}
+
+
+def phase_fused(torch, dev) -> dict:
+    """Phases 27-29: the fused modes (jit_mode=iteration/solve). Returns,
+    by run, the kernel launches by size and the numbers of each run."""
+    from hiop_tpu_torch.examples import acopf_mds, dense_ex1, dense_ex2, mds_ex1
+    from hiop_tpu_torch.linalg import kernels as K
+
+    # the production options of bench_subs.py:70-75 (the JAX package's
+    # benchmark of the yardstick): the fused whole solve with the f32
+    # device LDL^T, f64 refinement and the adaptive schedule
+    prod = acopf_mds.PRODUCTION_OPTIONS
+    out = {}
+
+    _log(f"[27] ACOPF in the production options (jit_mode=solve, kkt_fact_dtype=float32, "
+         f"linear_solver_dense=ldl_nopiv, mp_schedule=adaptive), max_iter={FUSED_MAX_ITER}")
+    for B in FUSED_B:
+        name = f"acopf B={B} production"
+        torch.cuda.reset_peak_memory_stats()
+        K.stats.timing = True
+        r, wall, sizes, reads, solver = _counted_solve(
+            torch, name, _acopf_solver(B, max_iter=FUSED_MAX_ITER, **prod),
+            {"ldl_nopiv": "the fused step's f32 LDL^T of the saddle"})
+        kernel_ms = _ms_per_launch(torch, K)
+        K.stats.timing = False
+        its = max(r.iterations, 1)
+        k = solver.nlp.runstats.kkt
+        handoff = solver.fused_fallback
+        # the history covers the fused iterations (through a needs-host exit)
+        means = _hist_means(solver, handoff[0] if handoff else r.iterations)
+        n_sad = (acopf_mds.AcopfMds(B).nd + 9 * B + 127) // 128 * 128
+        ref, tol = acopf_mds.SELFCHECK[B]
+        got = dict(iterations=r.iterations, status=r.status.name, obj=r.obj, s_per_iter=wall / its,
+                   fused_iterations=handoff[0] if handoff else r.iterations,
+                   reads_per_iter=reads / its, f32_share=k.n_fact_f32 / max(k.n_fact_total, 1),
+                   peak_gib=torch.cuda.max_memory_allocated() / 2**30, launches=sizes,
+                   kernel_ms=kernel_ms, **{
+                       f"mean_{c}": v for c, v in means.items() if c != "f32_share"})
+        _log(f"  {name}: {r.status.name} after {r.iterations} iterations, {wall / its:.4f} s/iter, "
+             f"{reads / its:.2f} host reads per iteration; "
+             + (f"needs-host exit at iteration {handoff[0]} ({handoff[1]}), the general loop from there; "
+                if handoff else "no needs-host exit; ")
+             + f"f32 LDL^T at {n_sad}^2: "
+             f"{sizes.get(f'ldl_nopiv:{n_sad}:float32', 0)} launches, f64 LDL^T (inertia verification, "
+             f"certification fallback) {sizes.get(f'ldl_nopiv:{n_sad}:float64', 0)}; f32 fraction "
+             f"{got['f32_share']:.3f} ({k.n_fact_f32} of {k.n_fact_total}); means per fused iteration: "
+             f"ladder refactorizations {means.get('n_refact', 0):.3f}, IR steps "
+             f"{means.get('ir_primary', 0):.3f}, SOC rounds {means.get('soc_rounds', 0):.3f}; obj "
+             f"{r.obj!r} (saved {ref!r}, |diff| {abs(r.obj - ref):.3e}); max_memory_allocated "
+             f"{got['peak_gib']:.3f} GiB; kernel ms per launch by size (CUDA events) "
+             f"{ {k: round(v, 4) for k, v in kernel_ms.items()} }; bound ms at {n_sad}^2 "
+             f"{_bound_ms(n_sad, 4, 'float32')[0]:.4f} (f32), {_bound_ms(n_sad, 8, 'float64')[0]:.4f} (f64)")
+        _check(sizes.get(f"ldl_nopiv:{n_sad}:float32", 0) > 0, f"{name}: no f32 LDL^T at {n_sad}")
+        _check(r.obj == r.obj and abs(r.obj) < float("inf"), f"{name}: objective {r.obj!r}")
+        if B == FUSED_B[0] or r.status.is_success:
+            _check(r.status.is_success, f"{name}: status {r.status.name}")
+            _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)), f"{name}: obj {r.obj!r} vs saved {ref!r}")
+        out[name] = got
+
+    _log(f"[28] ACOPF B={FULL_B}, production options under jit_mode=kernels, iteration and solve, "
+         f"capped at {MODES_MAX_ITER} iterations")
+    for mode in ("kernels", "iteration", "solve"):
+        name = f"acopf B={FULL_B} production {mode}"
+        build = _acopf_solver(FULL_B, **{**prod, "jit_mode": mode, "max_iter": MODES_MAX_ITER})
+        need = ({"cholesky": "the general loop's f32 quick tier"} if mode == "kernels"
+                else {"ldl_nopiv": "the fused step's f32 LDL^T"})
+        r, wall, sizes, reads, solver = _counted_solve(torch, name, build, need)
+        busy_ms, pwall = _busy_ms(torch, lambda: build()[0].run())
+        its = max(r.iterations, 1)
+        got = dict(iterations=r.iterations, status=r.status.name, s_per_iter=wall / its,
+                   reads_per_iter=reads / its, busy_ms=busy_ms, profiled_wall_s=pwall,
+                   idle_share=1.0 - busy_ms / (pwall * 1e3), launches=sizes)
+        _log(f"  {name}: {r.iterations} iterations, {wall / its:.4f} s/iter, {reads / its:.2f} host reads "
+             f"per iteration; under torch.profiler device busy {busy_ms:.1f} ms of {pwall * 1e3:.1f} ms, "
+             f"idle share {got['idle_share']:.3f}; obj at the cap {r.obj!r}"
+             + (f"; needs-host exit at iteration {solver.fused_fallback[0]}" if solver.fused_fallback else ""))
+        out[name] = got
+
+    _log("[29] fused modes on the other paths, beside jit_mode=kernels in this call "
+         "(phases 4, 10 and 11)")
+    runs = (
+        ("mds_ex1 400/100", lambda jm: mds_ex1.solve(400, 100, verbosity_level=0, jit_mode=jm),
+         ("kernels", "iteration", "solve"), {"cholesky": "quick tier: K_d and S"},
+         lambda r, jm: abs(r.obj - (mds_ex1.SELFCHECK_OBJ if jm == "kernels" else MDS_EX1_FUSED_OBJ)) <= 1e-6),
+        (f"dense newton ex2 n={NEWTON_N}",
+         lambda jm: dense_ex2.solve_newton(NEWTON_N, verbosity_level=0, jit_mode=jm),
+         ("kernels", "solve"), {"cholesky": f"K at {NEWTON_N}^2"},
+         lambda r, jm: dense_ex2.selfcheck_ok(r.obj, *dense_ex2.SELFCHECK[NEWTON_N])),
+        (f"qn dense_ex1 n={QN_N}", lambda jm: dense_ex1.solve(QN_N, verbosity_level=0, jit_mode=jm),
+         ("kernels", "solve"), {"cholesky": "the low-rank KKT's m x m Schur system"},
+         lambda r, jm: dense_ex1.selfcheck_ok(r.obj, *dense_ex1.SELFCHECK[QN_N])),
+    )
+    for label, run, modes, need, right in runs:
+        for mode in modes:
+            name = f"{label} {mode}"
+            with _count_syncs(torch) as syncs:
+                r, wall, _, sizes = _solve_phase(torch, name, lambda: run(mode), need)
+            its = max(r.iterations, 1)
+            busy_ms, pwall = _busy_ms(torch, lambda: run(mode))
+            idle = 1.0 - busy_ms / (pwall * 1e3)
+            _log(f"  {name}: {r.iterations} iterations, {wall / its:.4f} s/iter, "
+                 f"{syncs['syncs'] / its:.2f} host reads per iteration; under torch.profiler device "
+                 f"busy {busy_ms:.1f} ms of {pwall * 1e3:.1f} ms, idle share {idle:.3f}")
+            _check(r.status.is_success and right(r, mode), f"{name}: {r.status.name}, obj {r.obj!r}")
+            out[name] = dict(iterations=r.iterations, s_per_iter=wall / its,
+                             reads_per_iter=syncs["syncs"] / its, idle_share=idle, launches=sizes)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1796,6 +1985,7 @@ def main() -> int:
          f"B={FULL_B} (f64) patterns")
     phase_device_sparse_ldl(torch, dev)
     phase_device_sparse_solves(torch, dev)
+    fused = phase_fused(torch, dev)
 
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
@@ -1834,6 +2024,10 @@ def main() -> int:
                     phase: {k: v for k, v in got["kernel_ms"].items()
                             if k.startswith(name + ":") and k.endswith(dname)}
                     for phase, got in sparse.items() if got["kernel_ms"]},
+                fused_path_launches={
+                    run: {k: v for k, v in got["launches"].items()
+                          if k.startswith(name + ":") and k.endswith(dname)}
+                    for run, got in fused.items()},
                 **({"sparse_normaleqn_shape": sparse["sparse_ex1 normaleqn"]["alone"]}
                    if name == "cholesky" and dname == "float64" else {}),
                 **({"sparse_ex2_saddle_shape": sparse["sparse_ex2"]["alone"]}

@@ -23,7 +23,8 @@ Bounds: v in [0.81, 1.21], w in [0, Imax^2], g in [0, gmax], f_0 = 0
 packages build the same instance from the same seed.
 
 Run: ``python -m hiop_tpu_torch.examples.acopf_mds 32 -selfcheck``
-(on cuda:0; add ``-cpu`` for the CPU, ``-sparse`` for ``AcopfSparse``).
+(on cuda:0; add ``-cpu`` for the CPU, ``-sparse`` for ``AcopfSparse``,
+``-production`` for the fused whole solve in :data:`PRODUCTION_OPTIONS`).
 """
 
 from __future__ import annotations
@@ -312,6 +313,7 @@ class _AcopfCore:
 class AcopfMds(MdsProblem):
     """MDS formulation: sparse network state + dense dispatch block."""
 
+    jittable = True
     jac_constant = False
 
     def __init__(self, n_bus: int = 32, seed: int = 0):
@@ -375,6 +377,8 @@ class AcopfSparse(SparseProblem):
     participation block's as triplets on the Pbal rows; the Hessian's upper
     triangle is the sparse diagonal followed by the dense cost block Q's
     upper triangle."""
+
+    jittable = True
 
     def __init__(self, n_bus: int = 32, seed: int = 0):
         self.core = c = _AcopfCore(n_bus, seed)
@@ -440,6 +444,13 @@ class AcopfSparse(SparseProblem):
         return torch.cat([hd, obj_factor * self._data.on(x.device)["q_ut"]])
 
 
+#: the JAX package's production setting for this example (bench_subs.py:70-75):
+#: the fused whole solve (jit_mode=solve) with the f32 device LDL^T of the
+#: saddle, f64 refinement and the adaptive mixed-precision schedule
+PRODUCTION_OPTIONS = dict(jit_mode="solve", kkt_fact_dtype="float32",
+                          linear_solver_dense="ldl_nopiv", mp_schedule="adaptive")
+
+
 def acopf_options(**opts) -> NlpOptions:
     """The example's options, updated with ``opts``."""
     o = NlpOptions()
@@ -469,6 +480,9 @@ def main(argv=None):
     pos = [a for a in argv if not a.startswith("-")]
     n_bus = int(pos[0]) if pos else 32
     extra = dict(compute_mode="cpu") if "-cpu" in argv else {}
+    if "-production" in argv:
+        # the fused whole solve in bench_subs.py's options
+        extra.update(PRODUCTION_OPTIONS)
     r = solve(n_bus, sparse="-sparse" in argv, **extra)
     print(f"Objective: {r.obj:.12e} status {r.status.name} iters {r.iterations}")
     if "-selfcheck" in argv:

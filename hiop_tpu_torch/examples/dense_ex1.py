@@ -39,6 +39,7 @@ def selfcheck_ok(obj: float, ref: float, tol: float) -> bool:
 
 
 class DenseConsEx1(DenseConstraintsProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(self, n: int = 1000, ratio: float = 1.0):

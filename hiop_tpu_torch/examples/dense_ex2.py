@@ -76,6 +76,7 @@ def ex2_bounds(n: int):
 
 
 class DenseConsEx2(DenseConstraintsProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(self, n: int = 1000, unconstrained: bool = False):

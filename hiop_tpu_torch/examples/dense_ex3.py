@@ -35,6 +35,7 @@ SELFCHECK = {500: (2.0578828266732687e+00, 1e-6), 5000: (2.02870382737020e+01, 1
 
 
 class DenseConsEx3(DenseConstraintsProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(self, n: int = 500):

@@ -35,6 +35,8 @@ UNCONSTRAINED_OBJ = -605.0
 
 
 class DenseConsEx4(DenseConstraintsProblem):
+    jittable = True
+
     def __init__(self, unconstrained: bool = False):
         self.unconstrained = unconstrained
 

@@ -44,6 +44,7 @@ def ex1_matrices(ns: int, nd: int):
 
 
 class MdsEx1(MdsProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(self, ns: int = 400, nd: int = 100, empty_sp_row: bool = False):

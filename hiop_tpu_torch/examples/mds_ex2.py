@@ -41,6 +41,7 @@ SELFCHECK_OBJ = -3.160999998751e03  # ns=400, nd=100, test-3 configuration
 
 
 class MdsEx2(MdsProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(

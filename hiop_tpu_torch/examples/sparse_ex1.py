@@ -49,6 +49,7 @@ def selfcheck_ok(obj: float, ref: float, tol: float) -> bool:
 
 
 class SparseEx1(SparseProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(self, n: int = 50, scal: float = 1.0):

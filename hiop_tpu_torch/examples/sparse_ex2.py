@@ -40,6 +40,7 @@ SELFCHECK = {50: (8.7754974e00, 1e-6), 500: (6.4322371e01, 1e-6), 5000: (1.23697
 
 
 class SparseEx2(SparseProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(

@@ -42,6 +42,7 @@ LP_TOL = 1e-4
 
 
 class SparseEx3(SparseProblem):
+    jittable = True
     jac_constant = True  # all constraints are linear (hiopLinear)
 
     def __init__(

@@ -41,6 +41,8 @@ SELFCHECK = {2: (-40200.0 / 121.0, 1e-6)}
 
 
 class SparseEx4(SparseProblem):
+    jittable = True
+
     def __init__(self, scal: float = 1.0):
         self.n = 2
         self.m = 4

@@ -32,6 +32,7 @@ class FixedVarsRemover(DenseConstraintsProblem):
         self._fixed_vals = np.asarray(fixed_vals, dtype=np.float64)[self.fixed_idx]
         self.n_full = self.fixed_mask.size
         self.n_red = int(self.free_idx.size)
+        self.jittable = getattr(problem, "jittable", False)
         self._on = {}
 
     def _maps(self, device):

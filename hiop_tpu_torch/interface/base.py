@@ -54,6 +54,10 @@ class NlpProblem:
     #: True when ALL constraints are linear (the reference's hiopLinear
     #: NonlinearityType): the Jacobian is evaluated once and cached.
     jac_constant: bool = False
+    #: True when every evaluation is torch on the device of ``x`` with no
+    #: host round trip: ``jit_mode=iteration/solve`` then run the fused
+    #: modes (hiop_tpu's flag of the same name: evaluations it can trace)
+    jittable: bool = False
 
     # -- sizes & data -------------------------------------------------------
     def get_prob_sizes(self) -> Tuple[int, int]:
@@ -184,6 +188,8 @@ class AutoDiffNlpProblem(NlpProblem):
     ...                        xl=..., xu=..., cl=..., cu=..., x0=...)
     """
 
+    jittable = True
+
     def __init__(
         self,
         f: Callable,
@@ -243,4 +249,4 @@ class AutoDiffNlpProblem(NlpProblem):
         return self._jac_c(x)
 
     def eval_hess_lagr(self, x, obj_factor, lam):
-        return self._hess_lagr(x, torch.as_tensor(obj_factor, dtype=x.dtype, device=x.device), lam)
+        return self._hess_lagr(x, torch.full((), float(obj_factor), dtype=x.dtype, device=x.device), lam)

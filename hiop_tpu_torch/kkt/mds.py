@@ -30,8 +30,9 @@ the same quick and device safe tiers in f32. The device saddle family
 :func:`factorize_saddle_device_mp` and operator-form
 :func:`factorize_saddle_device_mp_op`, certified by f64 refinement with an
 FGMRES escalation) keeps every factor field a tensor and folds the inertia
-acceptance into ``ok``; ``hiop_tpu``'s fused program calls it, and the
-port's fused modes (ROADMAP item 13) will.
+acceptance into ``ok``; the fused modes
+(:mod:`hiop_tpu_torch.optimization.fused_newton`) call it, as
+``hiop_tpu``'s fused program does.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ import scipy.linalg as sla
 import torch
 
 from hiop_tpu_torch.formulation.base import to_numpy
-from hiop_tpu_torch.kkt.newton_dense import _eye, _lu_with_inertia, _pos_inv
+from hiop_tpu_torch.kkt.newton_dense import _cap_at_dual_reg, _eye, _full, _lu_with_inertia, _pos_inv
 from hiop_tpu_torch.linalg import ldl_blocked as _ldl
 from hiop_tpu_torch.linalg.cholesky import cholesky as _chol
 from hiop_tpu_torch.linalg.vector_ops import scatter_add_
@@ -142,10 +143,7 @@ def factorize(
         JKJt = schur_js_triplets(js_vals, ks_inv, js_pairs, mc + md)
     else:
         JKJt = (Js * ks_inv) @ Js.T
-    S = JKJt + Jdn @ KdinvJT + torch.diag(
-        torch.cat([torch.full((mc,), float(delta_cc), dtype=dt, device=Hdd.device),
-                   dd_inv + delta_cd])
-    )
+    S = JKJt + Jdn @ KdinvJT + torch.diag(torch.cat([_full(mc, delta_cc, Hdd), dd_inv + delta_cd]))
     Ls = _chol(S)
     diag_s = torch.diagonal(Ls)
     if mc + md:
@@ -154,9 +152,7 @@ def factorize(
     else:
         scale_s = S.new_tensor(1.0)
         min_diag = S.new_tensor(float("inf"))
-    thresh = (torch.finfo(dt).eps ** 0.5) * scale_s * 1e-2
-    if delta_cc > 0:
-        thresh = torch.clamp(thresh, max=0.5 * float(delta_cc) ** 0.5)
+    thresh = _cap_at_dual_reg((torch.finfo(dt).eps ** 0.5) * scale_s * 1e-2, delta_cc)
     tiny = min_diag < thresh
     ok_s = torch.isfinite(Ls).all() & ~tiny
     ok = ok_k & ok_s
@@ -215,10 +211,7 @@ def _signed_inv(ks):
 
 def _diag_c(mc, dd_inv, delta_cc, delta_cd):
     """The diagonal of C beyond Js Ks^-1 Js^T: [delta_cc I; dd_inv + delta_cd]."""
-    return torch.cat([
-        torch.full((mc,), float(delta_cc), dtype=dd_inv.dtype, device=dd_inv.device),
-        dd_inv + delta_cd,
-    ])
+    return torch.cat([_full(mc, delta_cc, dd_inv), dd_inv + delta_cd])
 
 
 def _saddle(Kd, Jdn, C):
@@ -447,7 +440,7 @@ def _mp_solve_refined(f: MdsSaddleDeviceMpFactors, rhs,
     although it can certify poor directions late in the barrier (the
     operator form, :func:`_mp_solve_refined_op`, normalizes by ||rhs||).
     The loop stops at the first certified iterate or after ``max_ir``
-    steps (one host sync per step)."""
+    steps (one host read per step, :func:`_read_ir`)."""
     solve32 = _mp_solve32(f, rhs.shape[0], rhs.dtype)
     m_norm = f.M.abs().max()
     b_norm = torch.linalg.norm(rhs)
@@ -458,12 +451,21 @@ def _mp_solve_refined(f: MdsSaddleDeviceMpFactors, rhs,
     x = solve32(rhs)
     r = rhs - f.M @ x
     k = 0
-    while k < max_ir and bool(relres(x, r) > ir_tol):
+    more, certified = _read_ir(relres(x, r), x, ir_tol)
+    while k < max_ir and more:
         x = x + solve32(r)
         r = rhs - f.M @ x
         k += 1
-    certified = bool(relres(x, r) <= ir_tol) and bool(torch.isfinite(x).all())
+        more, certified = _read_ir(relres(x, r), x, ir_tol)
     return x, certified
+
+
+def _read_ir(rel, x, ir_tol: float):
+    """One host read for a refinement step: (refine again, certified), i.e.
+    rel > ir_tol, and rel <= ir_tol with x finite (a NaN residual does
+    neither)."""
+    more, conv, finite = torch.stack([rel > ir_tol, rel <= ir_tol, torch.isfinite(x).all()]).tolist()
+    return bool(more), bool(conv) and bool(finite)
 
 
 def solve_saddle_device_mp(f: MdsSaddleDeviceMpFactors, rxs_t, rxd_t, rd_t,
@@ -603,7 +605,7 @@ def _fgmres_device(matvec, precond, rhs, x0, K: int, tol_abs):
     certification, run only when plain refinement fails): CGS2
     orthogonalization in a loop that stops as soon as the projected
     residual |g_{j+1}| of the small least squares drops under ``tol_abs``
-    (one host sync per iteration). Returns (x, n_iter)."""
+    (one host read to start, then one per iteration). Returns (x, n_iter)."""
     n = rhs.shape[0]
     dt = rhs.dtype
     r0 = rhs - matvec(x0)
@@ -614,8 +616,10 @@ def _fgmres_device(matvec, precond, rhs, x0, K: int, tol_abs):
     H = torch.zeros((K + 1, K), dtype=dt, device=rhs.device)
     e1 = torch.zeros((K + 1,), dtype=dt, device=rhs.device)
     e1[0] = beta
-    tol_abs = float(tol_abs)
-    res = float(beta)
+    if isinstance(tol_abs, torch.Tensor):
+        tol_abs, res = torch.stack([tol_abs.double(), beta.double()]).tolist()
+    else:
+        tol_abs, res = float(tol_abs), float(beta)
     j = 0
     while res > tol_abs and j < K:
         z = precond(V[j])
@@ -665,19 +669,19 @@ def _mp_solve_refined_op(f: MdsSaddleDeviceMpOpFactors, js_rows, js_cols, rhs,
     x = solve32(rhs)
     r = rhs - matvec(x)
     k = 0
-    while k < max_ir and bool(relres(r) > ir_tol):
+    more, certified = _read_ir(relres(r), x, ir_tol)
+    while k < max_ir and more:
         x = x + solve32(r)
         r = rhs - matvec(x)
         k += 1
-    plain_ok = bool(relres(r) <= ir_tol) and bool(torch.isfinite(x).all())
-    if fgmres_k > 0 and not plain_ok:
+        more, certified = _read_ir(relres(r), x, ir_tol)
+    if fgmres_k > 0 and not certified:
         x_f, n_f = _fgmres_device(matvec, solve32, rhs, x, fgmres_k, ir_tol * b_norm)
         # a diverged FGMRES (breakdown) must not replace a finite iterate
-        if bool(torch.isfinite(x_f).all()):
-            x = x_f
+        x = torch.where(torch.isfinite(x_f).all(), x_f, x)
         r = rhs - matvec(x)
         k += n_f
-    certified = bool(relres(r) <= ir_tol) and bool(torch.isfinite(x).all())
+        certified = _read_ir(relres(r), x, ir_tol)[1]
     return x, certified, k
 
 

@@ -50,6 +50,25 @@ def _eye(n, like):
     return torch.eye(n, dtype=like.dtype, device=like.device)
 
 
+def _full(k: int, v, like):
+    """A (k,) tensor of the scalar v in ``like``'s dtype and device. v may
+    be a number or a 0-dim tensor on the device (the fused modes keep their
+    regularization on the device): no host read either way."""
+    if isinstance(v, torch.Tensor):
+        return v.to(like.dtype).expand(k)
+    return torch.full((k,), float(v), dtype=like.dtype, device=like.device)
+
+
+def _cap_at_dual_reg(thresh, delta_cc):
+    """The tiny-pivot threshold lowered to 0.5 sqrt(delta_cc) when
+    delta_cc > 0: a branch on a number, a ``torch.where`` on a tensor."""
+    if isinstance(delta_cc, torch.Tensor):
+        return torch.where(delta_cc > 0, torch.minimum(thresh, 0.5 * torch.sqrt(delta_cc)), thresh)
+    if delta_cc > 0:
+        return torch.clamp(thresh, max=0.5 * float(delta_cc) ** 0.5)
+    return thresh
+
+
 def _cho_solve(L, b):
     """cho_solve((L, True), b) for b of shape (k,) or (k, r)."""
     if b.dim() == 1:
@@ -85,9 +104,7 @@ def factorize_quick(H, Dx, Dd, Jc, Jd, delta_wx, delta_wd, delta_cc, delta_cd) -
     KinvJT = _cho_solve(Lk_safe, J.T)              # (n, m)
     dd_tot = Dd + delta_wd
     dd_inv = _pos_inv(dd_tot)
-    S = J @ KinvJT + torch.diag(torch.cat([
-        torch.full((mc,), float(delta_cc), dtype=dt, device=H.device), dd_inv + delta_cd,
-    ]))
+    S = J @ KinvJT + torch.diag(torch.cat([_full(mc, delta_cc, H), dd_inv + delta_cd]))
     Ls = _chol(S)
     # a numerically PSD-but-singular Schur complement whose Cholesky
     # succeeds is caught by its tiny pivots; with delta_cc > 0 the pivots
@@ -98,14 +115,12 @@ def factorize_quick(H, Dx, Dd, Jc, Jd, delta_wx, delta_wd, delta_cc, delta_cd) -
     else:
         scale_s = S.new_tensor(1.0)
         min_diag = S.new_tensor(float("inf"))
-    thresh = (torch.finfo(dt).eps ** 0.5) * scale_s * 1e-2
-    if delta_cc > 0:
-        thresh = torch.clamp(thresh, max=0.5 * float(delta_cc) ** 0.5)
+    thresh = _cap_at_dual_reg((torch.finfo(dt).eps ** 0.5) * scale_s * 1e-2, delta_cc)
     ok_s = torch.isfinite(Ls).all() & ~(min_diag < thresh)
     ok = ok_k & ok_s
     Ls_safe = torch.where(ok, Ls, _eye(mc + md, H))
     return QuickFactors(
-        Lk_safe, Ls_safe, Jc, Jd, dd_tot, torch.tensor(float(delta_cd), dtype=dt, device=H.device),
+        Lk_safe, Ls_safe, Jc, Jd, dd_tot, _full(1, delta_cd, H)[0],
         ok_k, ok_s, ok,
     )
 

@@ -107,7 +107,8 @@ def adjust_small_slacks(slack, bound, slack_dual, pattern, mu):
                        max(slack,0) + eps^0.75 * max(1,|bound|) ).
     Returns (new_slack, num_adjusted)."""
     eps = torch.finfo(slack.dtype).eps
-    small_val = eps * min(1.0, float(mu))
+    # mu is a number, or a device scalar in jit_mode=solve (no host read)
+    small_val = eps * (torch.clamp(mu, max=1.0) if isinstance(mu, torch.Tensor) else min(1.0, float(mu)))
     scale_fact = eps**0.75
     sel = pattern == 1.0
     tiny = sel & (slack < small_val)

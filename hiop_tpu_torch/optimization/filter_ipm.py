@@ -38,9 +38,13 @@ existing factorization, then to the nested FR solve of
 ``force_resto=yes`` forces it at iteration 1). The loop also carries
 elastic mode, checkpoints (:mod:`hiop_tpu_torch.utils.checkpoint`), the
 per-iteration KKT dumps of ``write_kkt`` and the ``deepchecks`` sanitizer.
-Options and paths that need modules not ported yet raise
-:class:`NotImplementedError` naming the ROADMAP.md item that will port
-them.
+With ``jit_mode=iteration`` or ``jit_mode=solve`` on a jittable problem
+the solvers run the fused modes of
+:mod:`hiop_tpu_torch.optimization.fused_newton` (``_run_dispatch``), and
+a fused step that needs the general loop's machinery hands its iterate
+to :meth:`FilterIPMBase._run_loop`. Options and paths that need modules
+not ported yet raise :class:`NotImplementedError` naming the ROADMAP.md
+item that will port them.
 """
 
 from __future__ import annotations
@@ -99,6 +103,12 @@ class _StepComputationError(Exception):
     pass
 
 
+class _FusedFallback(Exception):
+    """Raised by the fused modes when an iteration needs machinery that
+    lives only in the general loop (regularization past the ladder, SOC
+    and restoration after a rejected line search)."""
+
+
 def _not_ported(what: str, item: str):
     return NotImplementedError(
         f"{what} is not ported to hiop_tpu_torch yet (ROADMAP.md section 1, {item})"
@@ -111,7 +121,6 @@ _OTHER_FORMULATIONS = "item 14: the formulation classes of batching and decompos
 
 #: options whose non-default values need code the port does not have yet
 _UNPORTED_OPTIONS = (
-    ("jit_mode", ("iteration", "solve"), "jit_mode=iteration/solve", "item 13: fused modes"),
     ("checkpoint_format", ("orbax",), "checkpoint_format=orbax",
      "item 15: sharded checkpoints through torch.distributed.checkpoint"),
 )
@@ -1674,7 +1683,7 @@ class FilterIPMBase:
                 raise _not_ported(what, item)
         if o.str_("profile_dir"):
             raise _not_ported("profile_dir", "item 16: tracing surface")
-        return self._run_general()
+        return self._run_dispatch()
 
     def _run_general(self) -> SolverResult:
         nlp = self.nlp
@@ -1797,6 +1806,28 @@ class FilterIPMBase:
         disable_ls = o.str_("accept_every_trial_step") == "yes"
         self.solver_status = SolveStatus.NlpSolve_Pending
         self.iter_num = 0
+
+        # fused -> general handoff (the reference's quick->safe switch
+        # keeps the iterate, switch_to_safer_KKT hpp:468): when a fused
+        # mode exits needs-host, the general loop resumes from its last
+        # iterate and barrier parameter. As in hiop_tpu, the starting
+        # procedure above ran first, and the failing iteration is printed
+        # again.
+        handoff = getattr(self, "_fused_handoff", None)
+        if handoff is not None:
+            self._fused_handoff = None
+            it_h, mu_h, it_done = handoff
+            if bool(torch.isfinite(it_h.x).all()):
+                it_curr = it_h
+                mu = mu_h
+                tau = max(self.tau_min, 1.0 - mu)
+                f, c, d_eval, grad_f, Jc, Jd, resid, norms = self._evaluate_at(it_curr, b, mu)
+                self.iter_num = it_done
+                self.log.printf(
+                    Verbosity.SUMMARY,
+                    "resuming the general loop from the fused iterate "
+                    "(iteration %d, mu=%.3e)", it_done, mu,
+                )
 
         from hiop_tpu_torch import __version__
 
@@ -2330,11 +2361,367 @@ class FilterIPMBase:
         )
         return it_curr, float(state["mu"])
 
+    # ------------------------------------------------------ fused modes
+    #: fused-iteration mode of the solver class ('newton'/'qn'); None
+    #: disables the fused modes
+    _fused_mode = None
+    #: (iteration, reason) of a fused solve's needs-host exit to the
+    #: general loop, None without one
+    fused_fallback = None
+
+    def _run_dispatch(self) -> SolverResult:
+        """``jit_mode=iteration/solve`` on a jittable problem runs the fused
+        modes (:mod:`hiop_tpu_torch.optimization.fused_newton`) where
+        ``hiop_tpu`` would; a needs-host exit goes on in the general loop
+        from the fused iterate."""
+        o = self.opts
+        jit_mode = o.str_("jit_mode")
+        fusable = (
+            self._fused_mode is not None
+            and jit_mode in ("iteration", "solve")
+            and getattr(self.nlp.problem, "jittable", False)
+            and (self._fused_mode == "qn" or o.str_("KKTLinsys") in ("auto", "xdycyd"))
+            and not getattr(self.nlp, "matrix_free", False)
+            # per-iteration host-side debug and IO surfaces need the general loop
+            and o.str_("deepchecks") == "no"
+            and o.str_("write_kkt") == "no"
+            and o.str_("time_kkt") == "off"
+        )
+        if fusable:
+            fusable = self._fused_fits_memory()
+        if fusable:
+            try:
+                if jit_mode == "solve" and not self._iterate_callback_overridden():
+                    return self._run_fused_solve()
+                return self._run_fused()
+            except _FusedFallback as e:
+                self.log.printf(
+                    Verbosity.SUMMARY,
+                    "fused iteration bailed out (%s); re-running the general path",
+                    str(e),
+                )
+                self.fused_fallback = (self.iter_num, str(e))
+                # reset the algorithm state and run the general loop
+                self.filter = Filter()
+                self._n_accep = 0
+                self._err_nlp0 = None
+                self.iter_num = 0
+        return self._run_general()
+
+    def _fused_fits_memory(self) -> bool:
+        """``hiop_tpu``'s estimate of the fused MDS program's footprint, and
+        its budget: 12e9 bytes (a TPU chip's), or HIOP_TPU_FUSED_MEM_BUDGET.
+        The port keeps both so that a problem takes the same route in both
+        packages, not because the card needs it. Operator form
+        (kkt_fact_dtype=float32 with the triplet structure): the f32 saddle
+        and factor and the dense Jacobian state twice; else the f64 saddle
+        family's estimate."""
+        from hiop_tpu_torch.formulation.mds import NlpMDS
+
+        nlp = self.nlp
+        if not isinstance(nlp, NlpMDS):
+            return True
+        n_sad = nlp.n_dense + nlp.m_eq + nlp.m_ineq
+        m = nlp.m_eq + nlp.m_ineq
+        if (
+            self.opts.str_("kkt_fact_dtype") == "float32"
+            and kkt_mds.mds_js_struct(nlp) is not None
+        ):
+            est = n_sad * n_sad * 12 + 2 * m * nlp.n * 8
+        else:
+            est = n_sad * n_sad * 20 + 2 * m * nlp.n_sparse * 8
+        budget = float(os.environ.get("HIOP_TPU_FUSED_MEM_BUDGET", 12e9))
+        if est > budget:
+            self.log.printf(
+                Verbosity.SUMMARY,
+                "fused KKT footprint ~%.1f GB exceeds the %.1f GB budget; "
+                "using the general loop's host tiers",
+                est / 1e9, budget / 1e9,
+            )
+            return False
+        return True
+
+    def _iterate_callback_overridden(self) -> bool:
+        """jit_mode=solve does not stop for a per-iteration user callback;
+        a problem that overrides it takes the per-iteration fused path."""
+        from hiop_tpu_torch.interface.base import NlpProblem
+
+        cb = getattr(type(self.nlp.problem), "iterate_callback", None)
+        return cb is not None and cb is not NlpProblem.iterate_callback
+
+    def _fused_init(self):
+        """The fused modes' starting procedure: scaling, primal and slack
+        initialization, LSQ duals, theta_min/max, the option constants and
+        the initial fused state."""
+        from hiop_tpu_torch.optimization import fused_newton as fn
+
+        nlp = self.nlp
+        b: Bounds = nlp.bounds
+        o = self.opts
+        x_user = nlp.get_starting_point()
+        nlp.maybe_setup_scaling(x_user)
+        f0, c0, d0_eval = self._eval_f_cons(x_user)
+        x0, d0 = it_mod.starting_point_primal(x_user, d0_eval, b, self.kappa1, self.kappa2)
+        f, c, d_eval = self._eval_f_cons(x0)
+        n, m_eq, m_ineq = nlp.n, nlp.m_eq, nlp.m_ineq
+
+        def ones(k):
+            return torch.ones((k,), dtype=x0.dtype, device=x0.device)
+
+        it_curr = Iterate(
+            x=x0, d=d0,
+            sxl=ones(n), sxu=ones(n), sdl=ones(m_ineq), sdu=ones(m_ineq),
+            yc=torch.zeros_like(ones(m_eq)), yd=torch.zeros_like(ones(m_ineq)),
+            zl=b.ixl * 1.0, zu=b.ixu * 1.0, vl=b.idl * 1.0, vu=b.idu * 1.0,
+        )
+        it_curr = it_mod.determine_slacks(it_curr, b)
+        it_curr, x0, d0, fcd, warm_used = self._apply_warm_start(it_curr, x0, d0, b)
+        if fcd is not None:
+            f, c, d_eval = fcd
+        grad_f = nlp.eval_grad_f(x0)
+        Jc, Jd = nlp.eval_jac(x0)
+        if not warm_used and o.str_("duals_init") == "lsq":
+            yc, yd = du.initial_duals_lsq(
+                Jc, Jd, grad_f, it_curr.zl, it_curr.zu, it_curr.vl, it_curr.vu,
+                o.num("duals_lsq_ini_max"),
+            )
+            it_curr = it_curr._replace(yc=yc, yd=yd)
+
+        theta0 = self._theta_onenorm(it_curr, c, d_eval)
+        self.theta_max = self.theta_max_fact * max(1.0, theta0)
+        self.theta_min = self.theta_min_fact * max(1.0, theta0)
+        consts = dict(
+            kappa_d=self.kappa_d, kappa_Sigma=self.kappa_Sigma,
+            gamma_theta=self.gamma_theta,
+            gamma_phi=self.gamma_phi, s_theta=self.s_theta, s_phi=self.s_phi,
+            delta=self.delta, eta_phi=self.eta_phi,
+            min_step_size=self.min_step_size, smax=self.smax,
+            max_soc_iter=o.integer("max_soc_iter"),
+            kappa_soc=o.num("kappa_soc"),
+            # the inertia-revealing device LDL^T inside the fused step
+            fused_ldl=o.str_("linear_solver_dense") == "ldl_nopiv",
+            # mixed precision inside the fused step: the equilibrated f32
+            # LDL^T, f64 refinement, f64 refactorization only where the
+            # refinement cannot certify (ReSolve's pattern,
+            # RefactorizationSolver.hpp:74)
+            fused_mp=o.str_("kkt_fact_dtype") == "float32",
+            fused_ir_tol=min(o.num("ir_inner_tol_min"), 1e-9),
+            # inertia-free curvature acceptance in the fused mp ladder
+            # (hiopFactAcceptorInertiaFreeDWD)
+            fused_inertia_free=o.str_("fact_acceptor") == "inertia_free",
+            neg_curv_fact=o.num("neg_curv_test_fact"),
+        )
+        if self._fused_mode == "qn":
+            if getattr(nlp, "_mesh", None) is not None:
+                raise _not_ported("a mesh-sharded fused quasi-Newton state", "item 15: distribution")
+            consts.update(
+                sigma_update_strategy=o.str_("sigma_update_strategy"),
+                sigma0=o.num("sigma0"),
+                recalc_lsq_duals_tol=o.num("recalc_lsq_duals_tol"),
+            )
+            bfgs0 = blr.init_state(
+                n, o.integer("secant_memory_len"), o.num("sigma0"),
+                dtype=x0.dtype, device=x0.device,
+            )
+            state = fn.FusedQNState(
+                it=it_curr, f=f, c=c, d=d_eval, grad=grad_f, Jc=Jc, Jd=Jd, bfgs=bfgs0,
+                x_prev=it_curr.x, grad_prev=grad_f, Jc_prev=Jc, Jd_prev=Jd,
+                have_prev=False,
+            )
+        else:
+            state = fn.FusedState(it=it_curr, f=f, c=c, d=d_eval, grad=grad_f, Jc=Jc, Jd=Jd)
+        return state, consts
+
+    def _fused_term(self) -> dict:
+        """The termination and schedule constants of the fused solve."""
+        return dict(
+            eps_tol=self.eps_tol, rel_tol=self.rel_tol,
+            accep_tol=self.accep_tol, accep_iters=self.accep_iters,
+            max_iter=self.max_iter, kappa_eps=self.kappa_eps,
+            kappa_mu=self.kappa_mu, theta_mu=self.theta_mu,
+            tau_min=self.tau_min,
+            comp_tol_scaled=self.comp_tol / self.nlp.scale_obj,
+        )
+
+    def _run_fused_solve(self) -> SolverResult:
+        """``jit_mode=solve``: the outer mu loop, the filter and the
+        termination ladder on the device (fused_newton.build_fused_solve);
+        the host reads one status per iteration, folded into the step's
+        first read, and the history buffer once at the end, from which the
+        iteration table is printed as in the other modes."""
+        from hiop_tpu_torch.optimization import fused_newton as fn
+
+        nlp = self.nlp
+        stats = nlp.runstats
+        stats.tm_optimize_total.restart()
+        mu = self.mu0
+        tau = max(self.tau_min, 1.0 - mu)
+        state, consts = self._fused_init()
+        solve = fn.build_fused_solve(nlp, consts, self._fused_term(), mode=self._fused_mode)
+        state, mu_dev, it_num, st, _err, hist, _carry = solve(
+            state, mu, tau, self.theta_min, self.theta_max, self.max_iter,
+        )
+        rows = min(it_num + 1, fn.HIST_CAP)
+        # the one read at the end: the history rows, mu and f
+        host = torch.cat([hist[:rows].reshape(-1), mu_dev.reshape(1), state.f.reshape(1)]).tolist()
+        hist = np.asarray(host[:rows * fn.HIST_COLS]).reshape(rows, fn.HIST_COLS)
+        mu, f_final = host[-2], host[-1]
+        err_nlp = float(hist[min(it_num, fn.HIST_CAP - 1), fn.HIST_ERR])
+
+        # the iteration table from the history buffer
+        for i in range(rows):
+            self.iter_num = i
+            (f_i, feas_i, opt_i, mu_i, adu_i, apr_i, lsn_i, lss_i,
+             _err_i, soc_i, _f32_i, _dw_i, _nref_i, _ir_i, _socn_i) = hist[i]
+            self._output_iteration(
+                f_i, feas_i, opt_i, mu_i, adu_i, apr_i,
+                int(lsn_i), int(lss_i) if i else -1, use_soc=int(soc_i),
+            )
+        self._err_nlp0 = float(hist[0, fn.HIST_ERR])
+        self.iter_num = it_num
+        stats.n_iters = it_num
+        #: the per-iteration history (HIST_COLS, with delta_w and mp_f32);
+        #: rows past min(it_num, HIST_CAP) are undefined
+        self._last_fused_hist = hist
+        if it_num > 0 and consts.get("fused_mp"):
+            used = hist[:it_num, 10]
+            stats.kkt.n_fact_total += int(used.shape[0])
+            stats.kkt.n_fact_f32 += int(used.sum())
+
+        if st in (6, 7):
+            # hand the final fused iterate to the general loop (resume, not
+            # restart: see _run_loop's handoff block)
+            self._fused_handoff = (state.it, mu, it_num)
+        if st == 6:
+            raise _FusedFallback("factorization needs regularization")
+        if st == 7:
+            raise _FusedFallback("line search rejected (SOC/FR needed)")
+        self.solver_status = {
+            1: SolveStatus.Solve_Success,
+            2: SolveStatus.Solve_Success_RelTol,
+            3: SolveStatus.Solve_Acceptable_Level,
+            4: SolveStatus.Max_Iter_Exceeded,
+            5: SolveStatus.Iterates_Diverging,
+        }.get(st, SolveStatus.Unknown)
+        return self._fused_result(state, f_final, err_nlp, mu, "fused solve")
+
+    def _fused_result(self, state, f_final: float, err_nlp: float, mu: float, what: str):
+        nlp = self.nlp
+        obj = nlp.unscaled_obj(f_final)
+        nlp.runstats.tm_optimize_total.stop()
+        nlp.user_callback_solution(
+            self.solver_status, state.it.x, state.it.zl, state.it.zu,
+            torch.cat([state.c, state.d]) if nlp.m else state.c,
+            (state.it.yc, state.it.yd), obj,
+        )
+        self.log.printf(
+            Verbosity.SUMMARY,
+            "Solver status: %s, objective %.12e, iterations %d (%s)",
+            self.solver_status.name, obj, self.iter_num, what,
+        )
+        return SolverResult(
+            status=self.solver_status, x=to_numpy(state.it.x), obj=obj,
+            iterations=self.iter_num, err_nlp=err_nlp, mu=mu,
+        )
+
+    def _run_fused(self) -> SolverResult:
+        """``jit_mode=iteration``: one fused step per iteration
+        (fused_newton.build_fused_step), the O(1) decisions on the host from
+        one read of the step's scalar bundle; the filter is a host array,
+        mirrored on the device for the step's trial tests."""
+        from hiop_tpu_torch.optimization import fused_newton as fn
+
+        nlp = self.nlp
+        stats = nlp.runstats
+        stats.tm_optimize_total.restart()
+        mu = self.mu0
+        tau = max(self.tau_min, 1.0 - mu)
+
+        state, consts = self._fused_init()
+        step = fn.build_fused_step(nlp, consts, mode=self._fused_mode)
+
+        x0 = state.it.x
+        filt = np.full((fn.FILTER_CAP, 2), np.inf)
+        filt[0] = (self.theta_max, -np.inf)
+        filt_dev = torch.full((fn.FILTER_CAP, 2), math.inf, dtype=x0.dtype, device=x0.device)
+        filt_dev[0, 0] = self.theta_max
+        filt_dev[0, 1] = -math.inf
+        filt_len = 1
+        self.solver_status = SolveStatus.NlpSolve_Pending
+        self.iter_num = 0
+
+        dw_last = x0.new_zeros(())
+        while True:
+            new_state, s, dw_next = step(
+                state, mu, tau, filt_dev, filt_len, self.theta_min, dw_last,
+            )
+            sh = fn.read_scalars(s)
+            err_nlp = sh.err_nlp
+            if self._err_nlp0 is None:
+                self._err_nlp0 = err_nlp
+            self._output_iteration(
+                sh.f, sh.nlp_feasib, sh.nlp_optim, mu,
+                sh.alpha_dual, sh.alpha_primal,
+                int(sh.ls_count), int(sh.ls_status) if self.iter_num else -1,
+                use_soc=int(sh.use_soc),
+            )
+            # the user callback (scalars; arrays on request)
+            info = IterateCallbackInfo(
+                iter=self.iter_num, obj_value=nlp.unscaled_obj(sh.f),
+                logbar_obj_value=sh.phi, x=state.it.x,
+                z_L=state.it.zl, z_U=state.it.zu, s=state.it.d, g=state.c,
+                yc=state.it.yc, yd=state.it.yd,
+                inf_pr=sh.nlp_feasib, inf_du=sh.nlp_optim,
+                onenorm_pr=sh.theta, mu=mu,
+                alpha_du=sh.alpha_dual, alpha_pr=sh.alpha_primal,
+                ls_trials=int(sh.ls_count),
+            )
+            if not nlp.user_callback_iterate(info):
+                self.solver_status = SolveStatus.User_Stopped
+                break
+
+            term = self._check_termination(err_nlp, sh)
+            if term is not None:
+                self.solver_status = term
+                break
+
+            if not sh.fact_ok:
+                self._fused_handoff = (state.it, mu, self.iter_num)
+                raise _FusedFallback("factorization needs regularization")
+            if int(sh.ls_status) == 0:
+                self._fused_handoff = (state.it, mu, self.iter_num)
+                raise _FusedFallback("line search rejected (SOC/FR needed)")
+
+            # the mu schedule (one reduction per iteration; catch-up
+            # happens over the following iterations)
+            if sh.err_log <= self.kappa_eps * mu:
+                changed, mu, tau = self._update_mu(mu)
+                if changed:
+                    filt[0] = (self.theta_max, -np.inf)
+                    filt_len = 1
+            if sh.filter_add and filt_len < fn.FILTER_CAP:
+                filt[filt_len] = (sh.theta_add, sh.phi_add)
+                filt_dev[filt_len, 0] = sh.theta_add
+                filt_dev[filt_len, 1] = sh.phi_add
+                filt_len += 1
+
+            state = new_state
+            dw_last = dw_next
+            self.iter_num += 1
+            stats.n_iters = self.iter_num
+            if consts.get("fused_mp"):
+                stats.kkt.n_fact_total += 1
+                stats.kkt.n_fact_f32 += int(bool(sh.mp_f32))
+
+        return self._fused_result(state, float(state.f), err_nlp, mu, "fused")
+
 
 class FilterIPMQuasiNewton(FilterIPMBase):
     """IPM with a limited-memory BFGS Hessian for dense-constrained NLPs
     (hiopAlgFilterIPMQuasiNewton, hpp:349). Always in "safe mode"
     (cpp:1085); the KKT system is the low-rank Schur solve."""
+
+    _fused_mode = "qn"
 
     def _make_strategy(self):
         return _LowRankStrategy(self.nlp)
@@ -2356,6 +2743,8 @@ class FilterIPMNewton(FilterIPMBase):
     ``linear_solver_sparse=auto``, from n + m = 2000 on; everything else the
     dense :class:`_NewtonDenseStrategy` (the Hessian assembled from the
     triplets for sparse problems). Another formulation class raises."""
+
+    _fused_mode = "newton"
 
     def _make_strategy(self):
         from hiop_tpu_torch.formulation.dense import NlpDenseConstraints

@@ -58,6 +58,7 @@ class FeasibilityRestorationProblem(NlpProblem):
         self.x_ref = torch.as_tensor(x_ref, dtype=torch.float64, device=self.device)
         self.mu_fr = max(float(mu), float(nrmInf_feas_ref))
         self.zeta = math.sqrt(self.mu_fr)
+        self.jittable = getattr(base_form.problem, "jittable", False)
         self.DR = torch.clamp(1.0 / torch.clamp(self.x_ref.abs(), min=1e-300), max=1.0)
         # termination bookkeeping (set by apply_feasibility_restoration)
         self.kappa_resto = base_form.options.num("kappa_resto")

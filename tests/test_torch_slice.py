@@ -23,7 +23,7 @@ import examples.acopf_mds as jax_acopf
 import examples.mds_ex1 as jax_ex1
 import hiop_tpu.native.ldl as jax_native_ldl
 import hiop_tpu_torch.native.ldl as torch_native_ldl
-from hiop_tpu_torch import FilterIPMNewton, NlpMDS, NlpOptions
+from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpDenseConstraints, NlpMDS, NlpOptions
 from hiop_tpu_torch.examples import acopf_mds, mds_ex1
 from hiop_tpu_torch.formulation.base import NlpFormulation
 from hiop_tpu_torch.linalg import ldl_blocked
@@ -113,20 +113,36 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
+#: (options, formulation attributes, the ROADMAP item named): the fused
+#: state of a parametric problem (batch_solve's) and a mesh-sharded fused
+#: quasi-Newton state, then two options
 UNPORTED = [
-    dict(jit_mode="iteration"),
-    dict(jit_mode="solve"),
-    dict(checkpoint_format="orbax"),
-    dict(profile_dir="trace"),
+    (dict(jit_mode="solve"), dict(parametric=True), "item 14"),
+    (dict(jit_mode="iteration"), dict(_mesh="mesh"), "item 15"),
+    (dict(checkpoint_format="orbax"), {}, "item 15"),
+    (dict(profile_dir="trace"), {}, "item 16"),
 ]
 
 
-@pytest.mark.parametrize("opts", UNPORTED, ids=lambda o: "-".join(map(str, o.items())))
-def test_unported_options_raise(opts):
+@pytest.mark.parametrize("opts,attrs,item", UNPORTED, ids=[
+    "parametric_fused_state", "mesh_sharded_fused_qn_state",
+    "('checkpoint_format', 'orbax')", "('profile_dir', 'trace')"])
+def test_unported_options_raise(opts, attrs, item):
     o = NlpOptions()
     o.update(compute_mode="cpu", verbosity_level=0, **opts)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FilterIPMNewton(NlpMDS(mds_ex1.MdsEx1(8, 4), o)).run()
+    if "_mesh" in attrs:
+        from hiop_tpu_torch.examples import dense_ex1
+
+        nlp = NlpDenseConstraints(dense_ex1.DenseConsEx1(20), o)
+        solver_cls = FilterIPMQuasiNewton
+    else:
+        nlp = NlpMDS(mds_ex1.MdsEx1(8, 4), o)
+        solver_cls = FilterIPMNewton
+    solver = solver_cls(nlp)
+    for k, v in attrs.items():
+        setattr(nlp, k, v)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1, {item}"):
+        solver.run()
 
 
 def test_unported_solvers_and_formulations_raise():
