@@ -37,6 +37,13 @@ JSON object per line:
   wall, and for Newton the time and extra memory of one
   ``torch.func.hessian``. Says whether the path is kernel- or host-bound.
 
+- ``pridec``: SC-ACOPF PriDec (``examples/acopf_pridec``) at B=32 with 8
+  line outages to convergence, against ``hiop_tpu``'s result on the CPU
+  (``chip_smoke.PRIDEC_WIDE_REF``): PriDec iterations, the objective, the
+  lanes that left the batched solve for a host solve, and the seconds in
+  master solves, batched recourse and host recourse. ``chip_smoke.py``
+  phase 33 runs the example's driver default (B=16, 4 outages).
+
 ``python3 chip_measure.py RUN ...`` runs only the named runs (default:
 all, in the order above).
 
@@ -252,7 +259,7 @@ def mp_run(torch, K, acopf_mds) -> dict:
         sizes={f"{k[0]}:{k[1]}:{k[2]}": v for k, v in K.stats.sizes.items()})
 
 
-RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp", "dense")
+RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp", "dense", "pridec")
 
 
 def main() -> int:
@@ -305,7 +312,31 @@ def main() -> int:
         print(json.dumps({"mp": mp_run(torch, K, acopf_mds), "card": card}), flush=True)
     if "dense" in runs:
         dense_run(torch, K, card)
+    if "pridec" in runs:
+        pridec_run(torch, K, card)
     return 0
+
+
+def pridec_run(torch, K, card) -> None:
+    from chip_smoke import PRIDEC_WIDE_REF
+    from hiop_tpu_torch.examples import acopf_pridec
+
+    B, S = PRIDEC_WIDE_REF["B"], PRIDEC_WIDE_REF["S"]
+    prob = acopf_pridec.AcopfPriDec(B, S, verbosity=0)
+    K.stats.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = acopf_pridec.solve(problem=prob, verbosity_level=0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    print(json.dumps({"pridec": dict(
+        B=B, S=S, status=r.status.name, iterations=r.iterations, obj=r.obj,
+        rel_diff_hiop_tpu=abs(r.obj - PRIDEC_WIDE_REF["obj"]) / abs(PRIDEC_WIDE_REF["obj"]),
+        hiop_tpu=PRIDEC_WIDE_REF, wall_s=wall, seconds=prob.seconds,
+        batched_evaluations=prob.n_evals, host_fallbacks=prob.host_fallbacks,
+        launches=dict(K.stats.launches),
+        batched_launches={f"{k[0]}:{k[1]}:{k[2]}:{k[3]}": v for k, v in K.stats.batches.items()},
+    ), "card": card}), flush=True)
 
 
 def _dense_case(torch, K, run) -> dict:

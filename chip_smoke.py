@@ -149,14 +149,43 @@ the script exits nonzero):
     Cholesky quick tier, at ``SELFCHECK_OBJ``), dense Newton ex2 at
     n = ``NEWTON_N`` and QN ``dense_ex1`` at n = ``QN_N`` under ``solve``,
     at their saved objectives: iterations, s/iter, host reads per
-    iteration and the idle share of one profiled solve.
+    iteration and the idle share of one profiled solve;
+30. the batched launches of both kernels alone (``gridDim.z = S``), f64
+    and f32, S in ``BATCH_S`` at the padded saddles of ACOPF B=32 and
+    B=256 (384 and 2432): each matrix bit for bit the single-matrix
+    kernel's (the Cholesky's NaN fill, the LDL^T's n_neg/ok per matrix),
+    the batched plain versions at 384, ms of one batched launch against S
+    single launches and, for the Cholesky, ``torch.linalg.cholesky`` of
+    the stack, beside the bound;
+31. SC-ACOPF contingency screening at the driver default (B=32, the
+    basecase and 7 line outages, ``solve_contingencies``), every lane's
+    fused solve in lockstep: status, iterations and objective per lane
+    against ``hiop_tpu``'s on the CPU (``CONT_REF``; succeeding lanes to
+    1e-8), each lane against the same scenario solved alone (S=1) on the
+    card, except a lane ``hiop_tpu`` itself decides by rounding
+    (``CONT_ROUNDING_DECIDED``, printed), batched launches and host reads
+    per batched iteration;
+32. full width: B=256 with the basecase and 31 outages, capped at
+    ``WIDE_MAX_ITER``: per-lane status and iterations, s per batched
+    iteration and time to solution, host reads per batched iteration,
+    batched LDL^T launches and their summed ms, peak memory, the basecase
+    lane at ``SELFCHECK[256]``, four lanes alone (S=1) and the idle share
+    of one profiled solve (capped at ``WIDE_PROFILE_ITER``);
+33. PriDec on the card: ``pridec_ex1`` 20/100 and ``pridec_ex2 -batched``
+    20/5 to their self-checks, SC-ACOPF PriDec (``acopf_pridec``) at its
+    driver default, B=16 with 4 outages, to ``hiop_tpu``'s objective
+    (``PRIDEC_REF``): PriDec iterations, the lanes solved alone on the
+    host, seconds in master solves against batched and host recourse
+    (``chip_measure.py pridec`` runs B=32 with 8 outages).
 
 Each main-path phase sets the launch counts to zero just before each solve
 and reads them just after; phases 14-16 also read them around each nested
 FR solve (``fr_path_launches`` in the ``kernels`` line) and time the
 kernels there (``fr_path_kernel_ms``); phases 18-22 give theirs as
 ``sparse_path_launches`` and ``sparse_path_kernel_ms``, phases 27-29 as
-``fused_path_launches``. The last three lines of
+``fused_path_launches``, phases 31-33 their batched launches as
+``batched_path_launches`` (by ``name:n:dtype:S``), and phase 30's rows
+as ``batched_shapes``. The last three lines of
 standard output are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
@@ -238,7 +267,14 @@ CG_OBJ, CG_OBJ_TOL = 1.10351e-01, 1e-4
 CONDENSED_DEVICE_N, CONDENSED_DEVICE_ITERS = 500, 20
 
 
+_T0 = time.perf_counter()
+
+
 def _log(*a) -> None:
+    """Print a line; a phase's header (``[N] ...``) carries the seconds
+    since the script started."""
+    if a and isinstance(a[0], str) and a[0].startswith("["):
+        a = (f"{a[0]}  (t={time.perf_counter() - _T0:.1f} s)",) + a[1:]
     print(*a, flush=True)
 
 
@@ -1884,6 +1920,312 @@ def phase_fused(torch, dev) -> dict:
     return out
 
 
+#: phase 30: the batched launches' sizes, the padded saddles of ACOPF B=32
+#: (294 -> 384) and B=256 (2355 -> 2432), and the batches
+BATCH_N = (294, 2355)
+BATCH_S = (8, 32)
+#: phase 31: the driver default of ``acopf_mds -contingencies`` (B=32, the
+#: basecase and 7 ring-line outages), and hiop_tpu's result on the CPU in
+#: f64 (``examples.acopf_mds.solve_contingencies(32, 8)``): status codes
+#: (1 Solve_Success, 7 Steplength_Too_Small, a needs-host exit),
+#: iterations and objectives per lane
+CONT_B, CONT_S = 32, 8
+CONT_REF = dict(
+    lines=[-1, 0, 4, 9, 13, 18, 22, 27],
+    status=[1, 7, 1, 1, 7, 1, 1, 1],
+    iterations=[43, 65, 48, 61, 43, 49, 63, 34],
+    obj=[20.54726213294539, 20.499600539065494, 20.63800225438471, 20.58384893892166,
+         20.506890688054956, 20.56610352968363, 20.55875665054949, 20.718546349261764],
+)
+#: phase 31: lanes whose outcome hiop_tpu itself decides by rounding: under
+#: 1 + 1e-15, 1 - 1e-15 and 1 + 1e-14 scalings of the starting point its
+#: basecase lane takes 60, 62 and 62 iterations instead of 43 (all
+#: Solve_Success; the other lanes keep theirs). Such a lane is not held to
+#: its S=1 run (ROADMAP.md section 3).
+CONT_ROUNDING_DECIDED = (0,)
+#: phase 32: full width, B=256 with the basecase and 31 ring-line outages,
+#: capped; the lanes also solved alone
+WIDE_B, WIDE_S, WIDE_MAX_ITER = 256, 32, 300
+WIDE_ALONE = (0, 1, 16, 31)
+#: phase 32: the iteration cap of the profiled solve (idle share)
+WIDE_PROFILE_ITER = 20
+#: phase 33: SC-ACOPF PriDec at the example's driver default (B=16, 4
+#: outages) and hiop_tpu's ``examples.acopf_pridec.solve(16, 4)`` on the CPU
+PRIDEC_B, PRIDEC_S = 16, 4
+PRIDEC_REF = dict(status="Solve_Success", iterations=3, obj=10.539369142565487)
+#: ``chip_measure.py pridec``: B=32 with 8 outages (about 250 s on the card,
+#: most of it in the master solves' and fallback lanes' host lu_eig tier)
+#: and hiop_tpu's ``examples.acopf_pridec.solve(32, 8)`` on the CPU
+PRIDEC_WIDE_REF = dict(B=32, S=8, status="Solve_Success", iterations=7, obj=41.25101888364181)
+
+
+def _bound_ms_batch(n: int, S: int, itemsize: int, dtype: str):
+    """Least time for S factorizations of n x n: S n^3/3 flops at the
+    type's peak against S 2 n^2 itemsize bytes at the memory rate."""
+    t_ops = S * (n ** 3 / 3.0) / PEAK_FLOPS[dtype] * 1e3
+    t_bytes = S * 2.0 * n * n * itemsize / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_batched_kernels(torch, dev) -> dict:
+    """Phase 30: the batched entry points alone. Each matrix's factor bit
+    for bit the single-matrix kernel's (with the Cholesky's NaN fill and
+    the LDL^T's n_neg/ok per matrix), the batched plain versions at the
+    small size, and CUDA-event times of one batched launch against S
+    single launches and, for the Cholesky, torch.linalg.cholesky of the
+    stack. Returns the rows by kernel."""
+    from hiop_tpu_torch.linalg import cholesky as chol
+    from hiop_tpu_torch.linalg import ldl_blocked as ldl
+
+    rows = {"cholesky": [], "ldl_nopiv": []}
+    tol = {torch.float64: 1e-10, torch.float32: 1e-4}
+    tol_ldl = {torch.float64: 1e-9, torch.float32: 1e-3}
+    for dt in (torch.float64, torch.float32):
+        dname = str(dt).replace("torch.", "")
+        itemsize = torch.empty((), dtype=dt).element_size()
+        for n_true in BATCH_N:
+            n = ldl._padded_size(n_true)
+            for S in BATCH_S:
+                g = torch.Generator(device=dev).manual_seed(n * 100 + S)
+                G = torch.randn(S, n, n, generator=g, dtype=torch.float64, device=dev)
+                A = (G @ G.mT / n + torch.eye(n, dtype=torch.float64, device=dev)).to(dt)
+                del G
+                A_bad = A.clone()
+                A_bad[1] = -A_bad[1]
+                Lb = chol.cholesky_batched(A_bad)
+                same = all(torch.equal(Lb[s].nan_to_num(7.0), chol.cholesky(A_bad[s]).nan_to_num(7.0))
+                           for s in range(S))
+                lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=dev))
+                _check(same, f"cholesky_batched {dname} n={n} S={S}: a factor differs from the single launch's")
+                _check(bool(torch.isnan(Lb[1][lower]).all()) and bool(torch.isfinite(Lb[0]).all()),
+                       f"cholesky_batched {dname} n={n} S={S}: the NaN fill is not per matrix")
+                Lb = chol.cholesky_batched(A)
+                err = None
+                if n_true == BATCH_N[0]:
+                    err = _rel(torch, Lb, chol.cholesky_plain_batched(A))
+                    _check(err <= tol[dt], f"cholesky_batched {dname} n={n} S={S}: vs plain {err:.3e}")
+                ms = _event_ms(torch, lambda: chol.cholesky_batched(A), 5)
+                single_ms = _event_ms(torch, lambda: [chol.cholesky(A[s]) for s in range(S)], 3)
+                lib_ms = _event_ms(torch, lambda: torch.linalg.cholesky(A), 5)
+                plain_ms = (_event_ms(torch, lambda: chol.cholesky_plain_batched(A), 1)
+                            if n_true == BATCH_N[0] else None)
+                bms, by = _bound_ms_batch(n, S, itemsize, dname)
+                rows["cholesky"].append(dict(
+                    n=n, S=S, dtype=dname, bitwise_single=same, rel_err_plain=err, ms=ms,
+                    single_launches_ms=single_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=bms, bound_by=by))
+                _log(f"  cholesky_batched {dname:7s} n={n:5d} S={S:2d} bitwise=single {same} "
+                     f"rel_err_plain {err if err is None else f'{err:.2e}'} batched {ms:8.3f} ms  "
+                     f"{S} singles {single_ms:8.3f} ms  torch.linalg.cholesky {lib_ms:8.3f} ms  "
+                     f"bound {bms:.4f} ms ({by})")
+                del A, A_bad, Lb
+                Ms = [_saddle(torch, n_true, 1000 * S + s, dt, dev) for s in range(S)]
+                M = torch.stack([x[0] for x in Ms])
+                m = Ms[0][1]
+                del Ms
+                fb = ldl.ldl_factor_batched(M)
+                same = True
+                for s in range(S):
+                    f1 = ldl.ldl_factor(M[s])
+                    same &= torch.equal(fb.L[s], f1.L) and torch.equal(fb.d[s], f1.d)
+                    _check(int(fb.n_neg[s]) == int(f1.n_neg) and bool(fb.ok[s]) == bool(f1.ok),
+                           f"ldl_factor_batched {dname} n={n} S={S}: n_neg/ok of matrix {s}")
+                _check(same, f"ldl_nopiv_batched {dname} n={n} S={S}: a factor differs from the single launch's")
+                _check(bool(fb.ok.all()) and bool((fb.n_neg == m).all()),
+                       f"ldl_factor_batched {dname} n={n} S={S}: inertia {fb.n_neg.tolist()} != {m}")
+                P = ldl._pad_sym(M, n)
+                err = None
+                if n_true == BATCH_N[0]:
+                    Wp, dp = ldl.ldl_nopiv_plain_batched(P)
+                    err = max(_rel(torch, fb.L, Wp), _rel(torch, fb.d, dp))
+                    _check(err <= tol_ldl[dt], f"ldl_nopiv_batched {dname} n={n} S={S}: vs plain {err:.3e}")
+                ms = _event_ms(torch, lambda: ldl.ldl_nopiv_batched(P), 5)
+                single_ms = _event_ms(torch, lambda: [ldl.ldl_nopiv(P[s]) for s in range(S)], 3)
+                plain_ms = (_event_ms(torch, lambda: ldl.ldl_nopiv_plain_batched(P), 1)
+                            if n_true == BATCH_N[0] else None)
+                bms, by = _bound_ms_batch(n, S, itemsize, dname)
+                rows["ldl_nopiv"].append(dict(
+                    n=n, n_true=n_true, S=S, dtype=dname, bitwise_single=same, rel_err_plain=err,
+                    ms=ms, single_launches_ms=single_ms, plain_ms=plain_ms, library_ms=None,
+                    bound_ms=bms, bound_by=by))
+                _log(f"  ldl_nopiv_batched {dname:7s} n={n_true:5d}->{n:5d} S={S:2d} bitwise=single {same} "
+                     f"n_neg {m} x {S} rel_err_plain {err if err is None else f'{err:.2e}'} "
+                     f"batched {ms:8.3f} ms  {S} singles {single_ms:8.3f} ms  "
+                     f"bound {bms:.4f} ms ({by})")
+                del M, P, fb
+                torch.cuda.empty_cache()
+    return rows
+
+
+def _contingency_run(torch, B, lines, max_iter, **opts):
+    """One batched contingency solve with the launch counts at zero: the
+    result, its history, the batched solve's stats, the wall time and the
+    launches (batched ones by (name, n, dtype, S))."""
+    from hiop_tpu_torch.examples import acopf_mds
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.optimization import batch_solve as bs
+
+    prob = acopf_mds.AcopfContingencyMds(B)
+    pnlp = bs.ParametricMdsNlp(prob, prob.th0(), acopf_mds.contingency_options(max_iter=max_iter, **opts))
+    batched = bs.build_batched_solve(pnlp)
+    params = prob.contingency_params(lines)
+    torch.cuda.synchronize()
+    K.stats.reset()
+    t0 = time.perf_counter()
+    (_th, core), _mu, it, st, _err, hist = batched(params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = torch.stack([st.double(), it.double(), core.f.double()]).cpu()
+    return dict(st=[int(v) for v in host[0]], it=[int(v) for v in host[1]], obj=host[2].tolist(),
+                hist=hist.cpu(), stats=batched.stats, wall=wall, launches=dict(K.stats.launches),
+                batches={f"{k[0]}:{k[1]}:{k[2]}:{k[3]}": v for k, v in sorted(K.stats.batches.items())})
+
+
+def _decisions_part(h_a, h_b, it_a, it_b) -> int:
+    """The first history row whose decisions (ls_count, ls_status,
+    use_soc, n_refact, soc_rounds) differ; the shorter run's length when
+    none does."""
+    last = min(it_a, it_b)
+    cols = [6, 7, 9, 12, 14]
+    for r in range(last + 1):
+        if not bool((h_a[r, cols] == h_b[r, cols]).all()):
+            return r
+    return last + 1
+
+
+def _need_batched(name, got, kernel):
+    _check(got["launches"].get(kernel, 0) > 0, f"{name}: the batched {kernel} never launched")
+
+
+def phase_contingencies(torch) -> dict:
+    """Phases 31-32: SC-ACOPF contingency screening, every scenario's fused
+    solve in lockstep. Returns, by run, the batched launches."""
+    from hiop_tpu_torch.examples import acopf_mds
+    from hiop_tpu_torch.linalg import kernels as K
+
+    out = {}
+    _log(f"[31] contingency screening at the driver default: ACOPF B={CONT_B}, "
+         f"{CONT_S} scenarios (basecase + {CONT_S - 1} outages), linear_solver_dense=ldl_nopiv")
+    lines = acopf_mds.contingency_lines(CONT_B, CONT_S)
+    _check(lines == CONT_REF["lines"], f"contingencies: lines {lines} vs {CONT_REF['lines']}")
+    got = _contingency_run(torch, CONT_B, lines, 300)
+    _need_batched("contingencies B=32", got, "ldl_nopiv_batched")
+    s = got["stats"]
+    _log(f"  B={CONT_B} x {CONT_S}: status {got['st']} iterations {got['it']} wall {got['wall']:.3f} s "
+         f"({s.trips} batched iterations, {got['wall'] / s.trips:.4f} s each); batched launches "
+         f"{got['batches']} ({sum(got['batches'].values()) / s.trips:.3f} per batched iteration); "
+         f"host reads {s.reads} ({s.reads / s.trips:.3f} per batched iteration); lanes live per "
+         f"iteration {s.lanes_live / s.trips:.2f}; stats {s.as_dict()}")
+    for k, ln in enumerate(lines):
+        st, it, obj = got["st"][k], got["it"][k], got["obj"][k]
+        ref_st, ref_it, ref_obj = CONT_REF["status"][k], CONT_REF["iterations"][k], CONT_REF["obj"][k]
+        rel = abs(obj - ref_obj) / max(1.0, abs(ref_obj))
+        same = st == ref_st and it == ref_it
+        _log(f"  lane {k} (outage {ln:3d}): status {st} in {it} iterations, obj {obj!r}; hiop_tpu "
+             f"{ref_st} in {ref_it}, {ref_obj!r}, rel diff {rel:.2e}"
+             + ("" if same else "  <- differs from hiop_tpu on the CPU"))
+        if st == 1 and ref_st == 1:
+            _check(rel <= 1e-8, f"contingency lane {k}: obj {obj!r} vs hiop_tpu {ref_obj!r}")
+    alone_wall = 0.0
+    for k, ln in enumerate(lines):
+        one = _contingency_run(torch, CONT_B, [ln], 300)
+        alone_wall += one["wall"]
+        part = _decisions_part(got["hist"][k], one["hist"][0], got["it"][k], one["it"][0])
+        same = one["st"][0] == got["st"][k] and one["it"][0] == got["it"][k]
+        diff = abs(one["obj"][0] - got["obj"][k])
+        _log(f"  lane {k} alone (S=1): status {one['st'][0]} in {one['it'][0]} iterations, "
+             f"|obj - batch lane| {diff:.2e}, decisions equal through row {part - 1}, "
+             f"{one['wall']:.3f} s")
+        if k in CONT_ROUNDING_DECIDED:
+            continue
+        _check(same and diff <= 1e-9 * max(1.0, abs(got["obj"][k])) and part == got["it"][k] + 1,
+               f"contingency lane {k}: the batch and the lone run differ")
+    _log(f"  {CONT_S} lone runs {alone_wall:.3f} s against the batch's {got['wall']:.3f} s")
+    out[f"contingencies B={CONT_B} x {CONT_S}"] = got["batches"]
+
+    lines = acopf_mds.contingency_lines(WIDE_B, WIDE_S)
+    _log(f"[32] full width: ACOPF B={WIDE_B} (saddle 2355 -> 2432), {WIDE_S} scenarios "
+         f"(basecase + {WIDE_S - 1} outages), capped at {WIDE_MAX_ITER}")
+    torch.cuda.reset_peak_memory_stats()
+    K.stats.timing = True
+    got = _contingency_run(torch, WIDE_B, lines, WIDE_MAX_ITER)
+    kms = K.stats.device_ms()
+    K.stats.timing = False
+    _need_batched("contingencies B=256", got, "ldl_nopiv_batched")
+    s = got["stats"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_ok = sum(1 for v in got["st"] if v == 1)
+    _log(f"  B={WIDE_B} x {WIDE_S}: status {got['st']}; iterations {got['it']}; {n_ok} of {WIDE_S} "
+         f"Solve_Success; time to solution {got['wall']:.3f} s, {s.trips} batched iterations, "
+         f"{got['wall'] / s.trips:.4f} s each; host reads {s.reads / s.trips:.3f} per batched "
+         f"iteration; lanes live per iteration {s.lanes_live / s.trips:.2f}; batched launches "
+         f"{got['batches']}, ldl_nopiv_batched {kms.get('ldl_nopiv_batched', 0.0):.1f} ms in all; "
+         f"max_memory_allocated {peak:.3f} GiB")
+    ref, tol = acopf_mds.SELFCHECK[WIDE_B]
+    _log(f"  basecase lane: status {got['st'][0]}, obj {got['obj'][0]!r} (SELFCHECK[{WIDE_B}] {ref!r})")
+    if got["st"][0] == 1:
+        _check(abs(got["obj"][0] - ref) <= tol * max(1.0, abs(ref)),
+               f"B={WIDE_B} basecase lane: obj {got['obj'][0]!r} vs saved {ref!r}")
+    out[f"contingencies B={WIDE_B} x {WIDE_S}"] = got["batches"]
+    for k in WIDE_ALONE:
+        one = _contingency_run(torch, WIDE_B, [lines[k]], WIDE_MAX_ITER)
+        part = _decisions_part(got["hist"][k], one["hist"][0], got["it"][k], one["it"][0])
+        _log(f"  lane {k} (outage {lines[k]}) alone (S=1): status {one['st'][0]} in {one['it'][0]} "
+             f"iterations (batch lane: {got['st'][k]} in {got['it'][k]}), |obj diff| "
+             f"{abs(one['obj'][0] - got['obj'][k]):.2e}, decisions equal through row {part - 1}; "
+             f"{one['wall']:.3f} s alone ({one['wall'] / max(one['stats'].trips, 1):.4f} s per "
+             f"iteration) against {got['wall'] / s.trips:.4f} s per batched iteration of {WIDE_S} lanes")
+    busy, wall = _busy_ms(torch, lambda: _contingency_run(torch, WIDE_B, lines, WIDE_PROFILE_ITER))
+    _log(f"  profiled solve (B={WIDE_B} x {WIDE_S}, capped at {WIDE_PROFILE_ITER}): device busy "
+         f"{busy:.1f} ms of {wall * 1e3:.1f} ms, idle share {1.0 - busy / (wall * 1e3):.3f}")
+    return out
+
+
+def phase_pridec(torch) -> dict:
+    """Phase 33: PriDec on the card. Returns, by run, the batched launches."""
+    from hiop_tpu_torch.examples import acopf_pridec, pridec_ex1, pridec_ex2
+    from hiop_tpu_torch.linalg import kernels as K
+
+    out = {}
+    _log("[33] PriDec on the card")
+
+    def counted(name, run):
+        torch.cuda.synchronize()
+        K.stats.reset()
+        t0 = time.perf_counter()
+        r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        batches = {f"{k[0]}:{k[1]}:{k[2]}:{k[3]}": v for k, v in sorted(K.stats.batches.items())}
+        _log(f"  {name}: status {r.status.name} in {r.iterations} PriDec iterations, obj {r.obj!r}, "
+             f"convergence {r.convergence:.3e}; wall {wall:.3f} s; launches {dict(K.stats.launches)} "
+             f"batched {batches}")
+        out[name] = batches
+        return r, dict(K.stats.launches), wall
+
+    r, _, _ = counted("pridec_ex1 20 100", lambda: pridec_ex1.solve(20, 100, verbosity_level=0).run())
+    _check(abs(r.obj - (0.5 * 100 * 20 + 0.5 * 20)) <= 1e-5, f"pridec_ex1: obj {r.obj!r}")
+    r, launches, _ = counted("pridec_ex2 -batched 20 5",
+                             lambda: pridec_ex2.solve(20, 5, 5, batched=True, verbosity_level=0).run())
+    _check(abs(r.obj - pridec_ex2.SELFCHECK_OBJ) <= 1e-5, f"pridec_ex2 -batched: obj {r.obj!r}")
+    _check(launches.get("cholesky_batched", 0) > 0, "pridec_ex2 -batched: no batched Cholesky")
+    prob = acopf_pridec.AcopfPriDec(PRIDEC_B, PRIDEC_S, verbosity=0)
+    r, launches, wall = counted(f"acopf_pridec B={PRIDEC_B} x {PRIDEC_S}",
+                                lambda: acopf_pridec.solve(problem=prob, verbosity_level=0))
+    _check(launches.get("ldl_nopiv_batched", 0) > 0, "acopf_pridec: no batched LDL^T")
+    rel = abs(r.obj - PRIDEC_REF["obj"]) / abs(PRIDEC_REF["obj"])
+    sec = prob.seconds
+    _log(f"  acopf_pridec: hiop_tpu {PRIDEC_REF['status']} in {PRIDEC_REF['iterations']} at "
+         f"{PRIDEC_REF['obj']!r} (rel diff {rel:.2e}); {prob.n_evals} batched recourse evaluations, "
+         f"{len(prob.host_fallbacks)} lanes solved alone on the host {prob.host_fallbacks}; seconds: "
+         f"master solves {sec['master']:.3f}, batched recourse {sec['recourse_batched']:.3f}, "
+         f"host recourse {sec['recourse_host']:.3f} (wall {wall:.3f})")
+    _check(r.status.name == PRIDEC_REF["status"] and r.iterations == PRIDEC_REF["iterations"],
+           f"acopf_pridec: {r.status.name} in {r.iterations} PriDec iterations")
+    _check(rel <= 1e-8, f"acopf_pridec: obj {r.obj!r} vs hiop_tpu {PRIDEC_REF['obj']!r}")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -1986,6 +2328,10 @@ def main() -> int:
     phase_device_sparse_ldl(torch, dev)
     phase_device_sparse_solves(torch, dev)
     fused = phase_fused(torch, dev)
+    _log(f"[30] the batched kernels alone: S = {BATCH_S} at the saddles n = {BATCH_N}")
+    batched_rows = phase_batched_kernels(torch, dev)
+    batched = phase_contingencies(torch)
+    batched.update(phase_pridec(torch))
 
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
@@ -2028,6 +2374,11 @@ def main() -> int:
                     run: {k: v for k, v in got["launches"].items()
                           if k.startswith(name + ":") and k.endswith(dname)}
                     for run, got in fused.items()},
+                batched_path_launches={
+                    run: {k: v for k, v in got.items() if k.startswith(name + "_batched:")
+                          and k.split(":")[2] == dname}
+                    for run, got in batched.items()},
+                batched_shapes=[x for x in batched_rows[name] if x["dtype"] == dname],
                 **({"sparse_normaleqn_shape": sparse["sparse_ex1 normaleqn"]["alone"]}
                    if name == "cholesky" and dname == "float64" else {}),
                 **({"sparse_ex2_saddle_shape": sparse["sparse_ex2"]["alone"]}

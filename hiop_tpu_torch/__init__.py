@@ -12,7 +12,9 @@ and sparse problems, in f64 and in mixed precision
 (``kkt_fact_dtype=float32`` with f64 FGMRES refinement), with the
 reference's robustness surface (soft and full feasibility restoration,
 elastic mode, ``fixed_var=remove``, checkpoints, ``write_kkt``,
-``deepchecks``). Hand-written CUDA
+``deepchecks``), batched solves of parametric families
+(``optimization/batch_solve``: every scenario's fused solve in lockstep)
+and the PriDec primal-decomposition solver. Hand-written CUDA
 kernels carry the blocked Cholesky (quick tiers, the low-rank KKT's Schur
 system) and the blocked no-pivot LDL^T (inertia-revealing safe tiers).
 
@@ -34,7 +36,7 @@ if _torch.backends.cuda.matmul.allow_tf32 or _torch.backends.cudnn.allow_tf32:
     raise RuntimeError("hiop_tpu_torch needs TF32 off for its factorizations")
 
 from hiop_tpu_torch.status import SolveStatus  # noqa: E402
-from hiop_tpu_torch.utils.options import NlpOptions  # noqa: E402
+from hiop_tpu_torch.utils.options import NlpOptions, PriDecOptions  # noqa: E402
 from hiop_tpu_torch.utils.logger import Logger, Verbosity  # noqa: E402
 from hiop_tpu_torch.interface.base import (  # noqa: E402
     AutoDiffNlpProblem,
@@ -51,6 +53,11 @@ from hiop_tpu_torch.optimization.filter_ipm import (  # noqa: E402
     FilterIPMNewton,
     FilterIPMQuasiNewton,
 )
+from hiop_tpu_torch.interface.pridec import (  # noqa: E402
+    PriDecProblem,
+    RecourseApproxEvaluator,
+)
+from hiop_tpu_torch.optimization.pridec import PriDecSolver  # noqa: E402
 
 __version__ = "0.1.0"
 
@@ -70,4 +77,8 @@ __all__ = [
     "NlpSparse",
     "FilterIPMNewton",
     "FilterIPMQuasiNewton",
+    "PriDecOptions",
+    "PriDecProblem",
+    "PriDecSolver",
+    "RecourseApproxEvaluator",
 ]

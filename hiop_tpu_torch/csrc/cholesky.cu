@@ -32,7 +32,8 @@
 namespace {
 
 template <typename T>
-__global__ void nan_fill_if_failed(const Args* __restrict__ args, int n) {
+__global__ void nan_fill_if_failed(const Args* __restrict__ args_all, int n) {
+  const Args* __restrict__ args = args_all + blockIdx.z;
   if (*args->info == 0) return;
   T* W = static_cast<T*>(args->W);
   const long long total = (long long)n * n;
@@ -44,15 +45,16 @@ __global__ void nan_fill_if_failed(const Args* __restrict__ args, int n) {
 }
 
 template <typename T>
-int cholesky(const void* A, void* L, int n, void* X, void* info, void* args, void* stream) {
+int cholesky(const void* A, void* L, int n, int batch, void* X, void* info, void* args,
+             void* stream) {
   const Args in{A, L, X, nullptr, nullptr, static_cast<int*>(info)};
   Args* dev_args = static_cast<Args*>(args);
-  return blocked_factor<T, false>(in, dev_args, n, reinterpret_cast<cudaStream_t>(stream),
-                                  [&](cudaStream_t cs) {
-                                    nan_fill_if_failed<T><<<grid_for((long long)n * n, 256), 256, 0, cs>>>(
-                                        dev_args, n);
-                                    return (int)cudaGetLastError();
-                                  });
+  return blocked_factor<T, false>(
+      in, dev_args, n, batch, reinterpret_cast<cudaStream_t>(stream), [&](cudaStream_t cs) {
+        nan_fill_if_failed<T><<<dim3(grid_for((long long)n * n, 256), 1, batch), 256, 0, cs>>>(
+            dev_args, n);
+        return (int)cudaGetLastError();
+      });
 }
 
 }  // namespace
@@ -63,12 +65,26 @@ int cholesky(const void* A, void* L, int n, void* X, void* info, void* args, voi
 // one stream (its address keys the cached CUDA graph).
 extern "C" int hiop_cholesky_f64(const void* A, void* L, int n, void* X, void* info, void* args,
                                  void* stream) {
-  return cholesky<double>(A, L, n, X, info, args, stream);
+  return cholesky<double>(A, L, n, 1, X, info, args, stream);
 }
 
 extern "C" int hiop_cholesky_f32(const void* A, void* L, int n, void* X, void* info, void* args,
                                  void* stream) {
-  return cholesky<float>(A, L, n, X, info, args, stream);
+  return cholesky<float>(A, L, n, 1, X, info, args, stream);
+}
+
+// The same for `batch` matrices of one n, factored by one launch sequence
+// (one CUDA graph): A and L are batch x n x n, X batch x NB x NB, info
+// batch ints (zero on entry), args batch x sizeof(Args) bytes.  Each
+// matrix's factor is bit for bit the single-matrix entry point's.
+extern "C" int hiop_cholesky_batched_f64(const void* A, void* L, int n, int batch, void* X,
+                                         void* info, void* args, void* stream) {
+  return cholesky<double>(A, L, n, batch, X, info, args, stream);
+}
+
+extern "C" int hiop_cholesky_batched_f32(const void* A, void* L, int n, int batch, void* X,
+                                         void* info, void* args, void* stream) {
+  return cholesky<float>(A, L, n, batch, X, info, args, stream);
 }
 
 extern "C" int hiop_args_bytes() { return (int)sizeof(Args); }

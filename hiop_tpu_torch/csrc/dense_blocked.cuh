@@ -34,7 +34,9 @@
 // Every kernel reads its pointers from a small device-resident Args
 // struct, so that the whole launch sequence of one (n, dtype) can be
 // captured once as a CUDA graph and replayed for new inputs (see
-// run_graph below).
+// run_graph below).  A batch of matrices of one n is one launch sequence
+// over an array of Args: every kernel takes its matrix's Args by
+// blockIdx.z (gridDim.z = 1 for a single matrix).
 //
 // Everything lives in an anonymous namespace so that each translation unit
 // carries its own instantiations (the two .cu files are compiled apart and
@@ -81,7 +83,8 @@ struct Args {
 
 // W = lower triangle of A, zeros above the diagonal.
 template <typename T>
-__global__ void copy_lower(const Args* __restrict__ args, int n) {
+__global__ void copy_lower(const Args* __restrict__ args_all, int n) {
+  const Args* __restrict__ args = args_all + blockIdx.z;
   const T* A = static_cast<const T*>(args->A);
   T* W = static_cast<T*>(args->W);
   const long long total = (long long)n * n;
@@ -216,7 +219,8 @@ __device__ __forceinline__ void prod32(const T* P, int prow, int pcol, const T* 
 //   X21 = -X22 (L21 X11)
 template <typename T, bool LDL>
 __global__ void __launch_bounds__(DIAG_THREADS)
-diag_factor(const Args* __restrict__ args, int ld, int k0, int kb) {
+diag_factor(const Args* __restrict__ args_all, int ld, int k0, int kb) {
+  const Args* __restrict__ args = args_all + blockIdx.z;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* S = reinterpret_cast<T*>(smem_raw);  // the block, then L
   T* Xs = S + NB * LDS;                    // the inverse; rows 32.. cols ..32 scratch
@@ -536,7 +540,8 @@ __device__ __forceinline__ void tile_nt(const T* A, long long lda, int a_rows, c
 // each CTA has read all of its rows before it writes them.
 template <typename T, bool LDL>
 __global__ void __launch_bounds__(TileCfg<T>::threads)
-panel(const Args* __restrict__ args, int ld, int r0, int m, int k0, bool vec16) {
+panel(const Args* __restrict__ args_all, int ld, int r0, int m, int k0, bool vec16) {
+  const Args* __restrict__ args = args_all + blockIdx.z;
   T* W = static_cast<T*>(args->W);
   const T* X = static_cast<const T*>(args->X);
   const T* invd = static_cast<const T*>(args->invd);
@@ -572,8 +577,9 @@ __device__ __forceinline__ bool update_tile(bool tri, int& bi, int& bj) {
 // s = d (SCALED, LDL^T) or 1.
 template <typename T, bool SCALED>
 __global__ void __launch_bounds__(TileCfg<T>::threads)
-update(const Args* __restrict__ args, int n, int r0, int c_end, int kk0, int K, bool tri,
+update(const Args* __restrict__ args_all, int n, int r0, int c_end, int kk0, int K, bool tri,
        bool vec16) {
+  const Args* __restrict__ args = args_all + blockIdx.z;
   int bi, bj;
   if (!update_tile(tri, bi, bj)) return;
   T* W = static_cast<T*>(args->W);
@@ -593,7 +599,7 @@ inline int grid_for(long long work, int threads) {
 }
 
 template <typename T, bool LDL>
-int launch_update(const Args* args, int n, int r0, int c_end, int kk0, int K, bool vec16,
+int launch_update(const Args* args, int n, int r0, int c_end, int kk0, int K, bool vec16, int batch,
                   cudaStream_t stream) {
   const int m = n - r0, w = c_end - r0;
   const int nrt = (m + TILE - 1) / TILE, nct = (w + TILE - 1) / TILE;
@@ -601,40 +607,48 @@ int launch_update(const Args* args, int n, int r0, int c_end, int kk0, int K, bo
   constexpr size_t sm = TileCfg<T>::smem;
   if (nct == nrt) {
     const long long tiles = (long long)nrt * (nrt + 1) / 2;
-    update<T, LDL><<<(unsigned)tiles, th, sm, stream>>>(args, n, r0, c_end, kk0, K, true, vec16);
+    update<T, LDL><<<dim3((unsigned)tiles, 1, batch), th, sm, stream>>>(args, n, r0, c_end, kk0, K,
+                                                                       true, vec16);
   } else {
-    update<T, LDL><<<dim3(nct, nrt), th, sm, stream>>>(args, n, r0, c_end, kk0, K, false, vec16);
+    update<T, LDL><<<dim3(nct, nrt, batch), th, sm, stream>>>(args, n, r0, c_end, kk0, K, false,
+                                                             vec16);
   }
   HIOP_RETURN_IF_LAUNCH_FAILED();
   return 0;
 }
 
 // The launch sequence of one factorization (copy, then per block column
-// diag / panel / update, and one rank-OB update per outer block).
+// diag / panel / update, and one rank-OB update per outer block).  With
+// batch > 1 every launch gets gridDim.z = batch: the CTAs of z work on
+// matrix z, with the pointers of Args z, in the same order as a single
+// factorization, so each matrix's factor is bit for bit the one a single
+// launch gives; the batch's diagonal-block chains run side by side.
 template <typename T, bool LDL>
-int blocked_factor_launches(const Args* args, int n, cudaStream_t stream) {
+int blocked_factor_launches(const Args* args, int n, int batch, cudaStream_t stream) {
   constexpr int th = TileCfg<T>::threads;
   constexpr size_t sm = TileCfg<T>::smem;
   const bool vec16 = (n % 2) == 0;
-  copy_lower<T><<<grid_for((long long)n * n, 256), 256, 0, stream>>>(args, n);
+  copy_lower<T><<<dim3(grid_for((long long)n * n, 256), 1, batch), 256, 0, stream>>>(args, n);
   HIOP_RETURN_IF_LAUNCH_FAILED();
   for (int K0 = 0; K0 < n; K0 += OB) {
     const int kend = (n - K0 < OB) ? n : K0 + OB;
     for (int k0 = K0; k0 < kend; k0 += NB) {
       const int kb = (n - k0 < NB) ? (n - k0) : NB;
-      diag_factor<T, LDL><<<1, DIAG_THREADS, diag_smem<T>(), stream>>>(args, n, k0, kb);
+      diag_factor<T, LDL><<<dim3(1, 1, batch), DIAG_THREADS, diag_smem<T>(), stream>>>(args, n, k0,
+                                                                                      kb);
       HIOP_RETURN_IF_LAUNCH_FAILED();
       const int r0 = k0 + kb, m = n - r0;
       if (m <= 0) break;
-      panel<T, LDL><<<(m + TILE - 1) / TILE, th, sm, stream>>>(args, n, r0, m, k0, vec16);
+      panel<T, LDL><<<dim3((m + TILE - 1) / TILE, 1, batch), th, sm, stream>>>(args, n, r0, m, k0,
+                                                                              vec16);
       HIOP_RETURN_IF_LAUNCH_FAILED();
       if (r0 < kend) {
-        int rc = launch_update<T, LDL>(args, n, r0, kend, k0, NB, vec16, stream);
+        int rc = launch_update<T, LDL>(args, n, r0, kend, k0, NB, vec16, batch, stream);
         if (rc) return rc;
       }
     }
     if (kend < n) {
-      int rc = launch_update<T, LDL>(args, n, kend, n, K0, kend - K0, vec16, stream);
+      int rc = launch_update<T, LDL>(args, n, kend, n, K0, kend - K0, vec16, batch, stream);
       if (rc) return rc;
     }
   }
@@ -653,15 +667,32 @@ int set_attributes() {
   return 0;
 }
 
-__global__ void set_args(Args* __restrict__ out, Args in) { *out = in; }
+// Args z of a batch from the pointers of matrix 0: the matrices, their
+// pivots and scratch lie back to back (n x n, n, NB x NB, NB, one info).
+template <typename T>
+__global__ void set_args(Args* __restrict__ out, Args in, int n, int batch) {
+  const int z = blockIdx.x * blockDim.x + threadIdx.x;
+  if (z >= batch) return;
+  const long long nn = (long long)n * n;
+  Args a;
+  a.A = static_cast<const T*>(in.A) + z * nn;
+  a.W = static_cast<T*>(in.W) + z * nn;
+  a.X = static_cast<T*>(in.X) + z * (NB * NB);
+  a.d = in.d ? static_cast<void*>(static_cast<T*>(in.d) + (long long)z * n) : nullptr;
+  a.invd = in.invd ? static_cast<void*>(static_cast<T*>(in.invd) + z * NB) : nullptr;
+  a.info = in.info ? in.info + z : nullptr;
+  out[z] = a;
+}
 
-// Replay the launch sequence of (LAUNCHES, n) on `stream` with the pointers
-// in `in`.  The sequence is captured once per (kernel, n, args buffer) into
-// a CUDA graph (on a private stream, then instantiated); each call writes
-// its pointers into the device buffer `args` with one small kernel and
-// launches the graph.  Calls that share an args buffer must share a stream.
-template <typename Key, typename Launches>
-int run_graph(Key key, Args* args, const Args& in, cudaStream_t stream, Launches launches) {
+// Replay the launch sequence of (LAUNCHES, n, batch) on `stream` with the
+// pointers in `in`.  The sequence is captured once per (kernel, n, batch,
+// args buffer) into a CUDA graph (on a private stream, then instantiated);
+// each call writes its batch's pointers into the device buffer `args`
+// (batch x sizeof(Args) bytes) with one small kernel and launches the
+// graph.  Calls that share an args buffer must share a stream.
+template <typename T, typename Key, typename Launches>
+int run_graph(Key key, Args* args, const Args& in, int n, int batch, cudaStream_t stream,
+              Launches launches) {
   static std::mutex mu;
   static std::map<Key, cudaGraphExec_t> cache;
   std::lock_guard<std::mutex> lock(mu);
@@ -685,21 +716,22 @@ int run_graph(Key key, Args* args, const Args& in, cudaStream_t stream, Launches
     if (rc != 0) return rc;
     cache.emplace(key, exec);
   }
-  set_args<<<1, 1, 0, stream>>>(args, in);
+  set_args<T><<<(batch + 63) / 64, 64, 0, stream>>>(args, in, n, batch);
   HIOP_RETURN_IF_LAUNCH_FAILED();
   HIOP_RETURN_IF_ERROR(cudaGraphLaunch(exec, stream));
   return 0;
 }
 
-// One factorization, its launch sequence followed by `epilogue`'s
-// launches, as a CUDA graph on `stream`.
+// `batch` factorizations of one n, their launch sequence followed by
+// `epilogue`'s launches, as one CUDA graph on `stream`.
 template <typename T, bool LDL, typename Epilogue>
-int blocked_factor(const Args& in, Args* args, int n, cudaStream_t stream, Epilogue epilogue) {
+int blocked_factor(const Args& in, Args* args, int n, int batch, cudaStream_t stream,
+                   Epilogue epilogue) {
   int rc = set_attributes<T, LDL>();
   if (rc) return rc;
-  const auto key = std::make_tuple(std::is_same<T, double>::value, LDL, n, (void*)args);
-  return run_graph(key, args, in, stream, [&](cudaStream_t cs) {
-    int r = blocked_factor_launches<T, LDL>(args, n, cs);
+  const auto key = std::make_tuple(std::is_same<T, double>::value, LDL, n, batch, (void*)args);
+  return run_graph<T>(key, args, in, n, batch, stream, [&](cudaStream_t cs) {
+    int r = blocked_factor_launches<T, LDL>(args, n, batch, cs);
     return r ? r : epilogue(cs);
   });
 }

@@ -29,9 +29,11 @@
 namespace {
 
 template <typename T>
-int ldl_nopiv(const void* A, void* L, void* d, int n, void* X, void* invd, void* args, void* stream) {
+int ldl_nopiv(const void* A, void* L, void* d, int n, int batch, void* X, void* invd, void* args,
+              void* stream) {
   const Args in{A, L, X, d, invd, nullptr};
-  return blocked_factor<T, true>(in, static_cast<Args*>(args), n, reinterpret_cast<cudaStream_t>(stream),
+  return blocked_factor<T, true>(in, static_cast<Args*>(args), n, batch,
+                                 reinterpret_cast<cudaStream_t>(stream),
                                  [](cudaStream_t) { return 0; });
 }
 
@@ -42,10 +44,24 @@ int ldl_nopiv(const void* A, void* L, void* d, int n, void* X, void* invd, void*
 // hiop_cholesky_*.
 extern "C" int hiop_ldl_nopiv_f64(const void* A, void* L, void* d, int n, void* X, void* invd,
                                   void* args, void* stream) {
-  return ldl_nopiv<double>(A, L, d, n, X, invd, args, stream);
+  return ldl_nopiv<double>(A, L, d, n, 1, X, invd, args, stream);
 }
 
 extern "C" int hiop_ldl_nopiv_f32(const void* A, void* L, void* d, int n, void* X, void* invd,
                                   void* args, void* stream) {
-  return ldl_nopiv<float>(A, L, d, n, X, invd, args, stream);
+  return ldl_nopiv<float>(A, L, d, n, 1, X, invd, args, stream);
+}
+
+// The same for `batch` matrices of one n (one launch sequence, one CUDA
+// graph): A and L batch x n x n, d batch x n, X batch x NB x NB, invd
+// batch x NB, args batch x sizeof(Args) bytes.  Each matrix's factor is
+// bit for bit the single-matrix entry point's.
+extern "C" int hiop_ldl_nopiv_batched_f64(const void* A, void* L, void* d, int n, int batch,
+                                          void* X, void* invd, void* args, void* stream) {
+  return ldl_nopiv<double>(A, L, d, n, batch, X, invd, args, stream);
+}
+
+extern "C" int hiop_ldl_nopiv_batched_f32(const void* A, void* L, void* d, int n, int batch,
+                                          void* X, void* invd, void* args, void* stream) {
+  return ldl_nopiv<float>(A, L, d, n, batch, X, invd, args, stream);
 }

@@ -22,9 +22,14 @@ Bounds: v in [0.81, 1.21], w in [0, Imax^2], g in [0, gmax], f_0 = 0
 ``build_grid`` is numpy and identical to the JAX example's, so both
 packages build the same instance from the same seed.
 
+:class:`AcopfContingencyMds` is the N-1 contingency family of the same
+grid, solved batched by :func:`solve_contingencies`.
+
 Run: ``python -m hiop_tpu_torch.examples.acopf_mds 32 -selfcheck``
 (on cuda:0; add ``-cpu`` for the CPU, ``-sparse`` for ``AcopfSparse``,
-``-production`` for the fused whole solve in :data:`PRODUCTION_OPTIONS`).
+``-production`` for the fused whole solve in :data:`PRODUCTION_OPTIONS`,
+``-contingencies N`` for the basecase and N - 1 line outages as one batched
+solve).
 """
 
 from __future__ import annotations
@@ -146,8 +151,17 @@ class _AcopfCore:
             ["e", "f", "a", "b", "p1", "m1", "p2", "m2", "v", "w"])}
 
     def _ymatvec(self, t, vals, x):
-        out = torch.zeros(self.B, dtype=x.dtype, device=x.device)
-        return scatter_add_(out, t["yr"], vals * x[t["yc"]])
+        prod = vals * x[t["yc"]]
+        # the sum starts from zeros shaped like the product, so that it
+        # runs under torch.func.vmap when either factor has a lane axis
+        return scatter_add_(prod.new_zeros(self.B), t["yr"], prod)
+
+    def _gb(self, t, th):
+        """Admittance values: the scenario parameter (a contingency) when
+        given, else the base grid."""
+        if th is None:
+            return t["gv"], t["bv"]
+        return th["gv"], th["bv"]
 
     def split(self, z):
         B = self.B
@@ -182,10 +196,10 @@ class _AcopfCore:
         t = self.t(g)
         return t["Q"] @ g + t["c"]
 
-    def cons_all(self, z, g):
+    def cons_all(self, z, g, th=None):
         """All 9B rows: [Ia, Ib, p1,m1,p2,m2 defs, Pbal, vdef, wdef]."""
         t = self.t(z)
-        gv, bv = t["gv"], t["bv"]
+        gv, bv = self._gb(t, th)
         e, f, a, b, p1, m1, p2, m2, v, w = self.split(z)
         ia = a - self._ymatvec(t, gv, e) + self._ymatvec(t, bv, f)
         ib = b - self._ymatvec(t, gv, f) - self._ymatvec(t, bv, e)
@@ -267,10 +281,10 @@ class _AcopfCore:
         self._jr = np.concatenate(seg_rows)
         self._jc = np.concatenate(seg_cols)
 
-    def jac_vals_sparse(self, z):
+    def jac_vals_sparse(self, z, th=None):
         """Values aligned with the segment layout of _build_jac_structure."""
         t = self.t(z)
-        gv, bv = t["gv"], t["bv"]
+        gv, bv = self._gb(t, th)
         B = self.B
         e, f, a, b, p1, m1, p2, m2, v, w = self.split(z)
         one = torch.ones(B, dtype=z.dtype, device=z.device)
@@ -444,6 +458,117 @@ class AcopfSparse(SparseProblem):
         return torch.cat([hd, obj_factor * self._data.on(x.device)["q_ut"]])
 
 
+class AcopfContingencyMds(MdsProblem):
+    """N-1 line-outage contingency family (SC-ACOPF security screening):
+    every scenario is the base grid with one line removed. Admittance VALUES
+    change on the fixed sparsity pattern, so the whole family shares one
+    structure. The evaluation hooks take a trailing scenario parameter
+    th = {"gv", "bv"} (the :class:`~hiop_tpu_torch.optimization.batch_solve.ParametricMdsNlp`
+    convention) and run under ``torch.func.vmap``; solve the family with
+    :func:`solve_contingencies`, every scenario's fused solve advancing in
+    lockstep on the device with the inertia-revealing LDL^T ladder."""
+
+    jittable = True
+    jac_constant = False
+
+    def __init__(self, n_bus: int = 32, seed: int = 0):
+        self.core = c = _AcopfCore(n_bus, seed)
+        self.n_sp, self.nd, self.m = c.n_sp, c.ng, c.m
+
+    # -- static structure (shared by all scenarios) -------------------------
+    def get_prob_sizes(self):
+        return self.n_sp + self.nd, self.m
+
+    def get_sparse_dense_blocks_info(self):
+        return self.n_sp, self.nd
+
+    def get_vars_info(self):
+        xl, xu = self.core.var_bounds_sparse()
+        return (
+            np.concatenate([xl, np.zeros(self.nd)]),
+            np.concatenate([xu, np.asarray(self.core.gd["g_max"])]),
+        )
+
+    def get_cons_info(self):
+        return self.core.cons_bounds()
+
+    def get_starting_point(self):
+        return np.concatenate([self.core.start_sparse(), self.core.start_dense()])
+
+    def contingency_params(self, lines):
+        """Stacked th (numpy) for the given outaged line indices (ring edges
+        keep the grid connected; index -1 = no outage, the basecase)."""
+        gd = self.core.gd
+        gvs, bvs = [], []
+        for k in lines:
+            mask = np.ones(gd["n_line"], dtype=bool)
+            if k >= 0:
+                mask[k] = False
+            gv, bv = _grid_y_values(gd["n_bus"], gd["edges"], gd["line_y"], gd["order"], mask)
+            gvs.append(gv)
+            bvs.append(bv)
+        return dict(gv=np.stack(gvs), bv=np.stack(bvs))
+
+    def th0(self):
+        return dict(gv=self.core.gd["g_vals"], bv=self.core.gd["b_vals"])
+
+    # -- parametric evaluations ---------------------------------------------
+    def _split(self, x):
+        return x[: self.n_sp], x[self.n_sp:]
+
+    def eval_f(self, x, th):
+        z, g = self._split(x)
+        return self.core.obj_sparse(z) + self.core.obj_dense(g)
+
+    def eval_grad_f(self, x, th):
+        z, g = self._split(x)
+        return torch.cat([self.core.grad_sparse(z), self.core.grad_dense(g)])
+
+    def eval_cons(self, x, th):
+        z, g = self._split(x)
+        return self.core.cons_all(z, g, th)
+
+    def jac_sparse_structure(self):
+        return self.core._jr, self.core._jc
+
+    def eval_jac_blocks(self, x, th):
+        z, _ = self._split(x)
+        B = self.core.B
+        dense = torch.zeros((self.m, self.nd), dtype=x.dtype, device=x.device)
+        dense[6 * B:7 * B, :] = self.core.t(x)["alpha"]
+        return self.core.jac_vals_sparse(z, th), dense
+
+    def eval_hess_blocks(self, x, obj_factor, lam, th):
+        z, _ = self._split(x)
+        return (
+            self.core.hess_diag_sparse(z, obj_factor, lam),
+            obj_factor * self.core.t(x)["Q"],
+        )
+
+
+def contingency_lines(n_bus: int, n_cont: int):
+    """The basecase (-1) and n_cont - 1 ring-line outages spread around
+    the ring."""
+    return [-1] + [(i * n_bus) // max(n_cont - 1, 1) for i in range(n_cont - 1)]
+
+
+def contingency_options(**opts) -> NlpOptions:
+    """The screening's options: the example's, with the inertia-revealing
+    device LDL^T in the fused ladder."""
+    return acopf_options(linear_solver_dense="ldl_nopiv", verbosity_level=0, **opts)
+
+
+def solve_contingencies(n_bus: int = 32, n_cont: int = 8, seed: int = 0, lines=None, **opts):
+    """Solve the basecase + (n_cont - 1) single-line outages as one batched
+    solve (``lines`` overrides the outages). Returns (BatchResult, lines)."""
+    from hiop_tpu_torch.optimization.batch_solve import ParametricMdsNlp, solve_batched
+
+    prob = AcopfContingencyMds(n_bus, seed)
+    pnlp = ParametricMdsNlp(prob, prob.th0(), contingency_options(**opts))
+    lines = contingency_lines(n_bus, n_cont) if lines is None else list(lines)
+    return solve_batched(pnlp, prob.contingency_params(lines)), lines
+
+
 #: the JAX package's production setting for this example (bench_subs.py:70-75):
 #: the fused whole solve (jit_mode=solve) with the f32 device LDL^T of the
 #: saddle, f64 refinement and the adaptive mixed-precision schedule
@@ -480,6 +605,19 @@ def main(argv=None):
     pos = [a for a in argv if not a.startswith("-")]
     n_bus = int(pos[0]) if pos else 32
     extra = dict(compute_mode="cpu") if "-cpu" in argv else {}
+    if "-contingencies" in argv:
+        n_cont = int(argv[argv.index("-contingencies") + 1])
+        res, lines = solve_contingencies(n_bus, n_cont, **extra)
+        ok = all(st.is_success for st in res.status)
+        print(f"SC-ACOPF screening: {n_cont} scenarios (outages {lines}), "
+              f"{'all converged' if ok else 'FAILURES'}; "
+              f"status {[st.name for st in res.status]}; "
+              f"objectives {np.round(res.obj, 6).tolist()}; "
+              f"iters {res.iterations.tolist()}")
+        if "-selfcheck" in argv:
+            print("selfcheck OK" if ok else "selfcheck FAILED")
+            return 0 if ok else 1
+        return 0
     if "-production" in argv:
         # the fused whole solve in bench_subs.py's options
         extra.update(PRODUCTION_OPTIONS)

@@ -10,16 +10,20 @@ an edited source is rebuilt and an unchanged one is loaded as it is.
 Every C entry point launches on the stream it is given, allocates no
 device memory, and returns the first CUDA error of its launches (0 on
 success). Each replays its factorization's launch sequence as a CUDA graph,
-captured at the first call for a given (kernel, n, dtype) and pointer
-buffer (:func:`args_buffer`); the Python wrappers in
+captured at the first call for a given (kernel, n, dtype, batch) and
+pointer buffer (:func:`args_buffer`); the Python wrappers in
 :mod:`hiop_tpu_torch.linalg.cholesky` and
 :mod:`hiop_tpu_torch.linalg.ldl_blocked` allocate outputs and scratch and
-raise on a nonzero return.
+raise on a nonzero return. Each kernel has a single-matrix and a batched
+entry point: the batched one factors S matrices of one n, stacked as an
+(S, n, n) tensor, in one launch sequence (``gridDim.z = S``).
 
-:data:`stats` counts the launches of each wrapper. A run sets the counts to
-zero, drives the solver, and reads them to show which kernels its main path
-went through. With ``stats.timing`` set, each launch is also bracketed by
-CUDA events so that the kernels' device time over a run can be summed.
+:data:`stats` counts the launches of each wrapper (a batched launch once,
+under its own name, with its S in :attr:`KernelStats.batches`). A run sets
+the counts to zero, drives the solver, and reads them to show which kernels
+its main path went through. With ``stats.timing`` set, each launch is also
+bracketed by CUDA events so that the kernels' device time over a run can be
+summed.
 """
 
 from __future__ import annotations
@@ -58,12 +62,14 @@ class KernelStats:
     def __init__(self) -> None:
         self.launches: Counter = Counter()   # name -> launches
         self.sizes: Counter = Counter()      # (name, n, dtype) -> launches
+        self.batches: Counter = Counter()    # (name, n, dtype, S) -> batched launches
         self.timing = False
         self.events: list = []               # (name, n, dtype, start, end) when timing
 
     def reset(self) -> None:
         self.launches.clear()
         self.sizes.clear()
+        self.batches.clear()
         self.events.clear()
 
     def begin(self):
@@ -75,10 +81,12 @@ class KernelStats:
         ev.record()
         return ev
 
-    def count(self, name: str, n: int, dtype, start) -> None:
+    def count(self, name: str, n: int, dtype, start, batch=None) -> None:
         dname = str(dtype).replace("torch.", "")
         self.launches[name] += 1
         self.sizes[(name, n, dname)] += 1
+        if batch is not None:
+            self.batches[(name, n, dname, batch)] += 1
         if start is not None:
             import torch
 
@@ -180,6 +188,12 @@ def load() -> ctypes.CDLL:
                 fn = getattr(lib, f"hiop_ldl_nopiv_{dt}")
                 fn.argtypes = [p, p, p, i, p, p, p, p]
                 fn.restype = i
+                fn = getattr(lib, f"hiop_cholesky_batched_{dt}")
+                fn.argtypes = [p, p, i, i, p, p, p, p]
+                fn.restype = i
+                fn = getattr(lib, f"hiop_ldl_nopiv_batched_{dt}")
+                fn.argtypes = [p, p, p, i, i, p, p, p, p]
+                fn.restype = i
             lib.hiop_args_bytes.restype = i
             if lib.hiop_args_bytes() > ARGS_BYTES:
                 raise RuntimeError("kernel library: Args is larger than ARGS_BYTES")
@@ -188,36 +202,42 @@ def load() -> ctypes.CDLL:
 
 
 #: bytes of the device buffer that carries one factorization's pointers
-#: (``Args`` in csrc/dense_blocked.cuh)
+#: (``Args`` in csrc/dense_blocked.cuh); a batch of S takes S of them
 ARGS_BYTES = 64
 _args_buffers: dict = {}
 
 
-def args_buffer(name: str, A):
-    """The device buffer of pointers for kernel ``name`` at A's size, dtype
-    and device. The kernels capture their launch sequence once per buffer
-    as a CUDA graph, so the buffer of one (kernel, n, dtype) lives as long
-    as the process and is reused by every call."""
+def args_buffer(name: str, A, batch: int = 1):
+    """The device buffer of pointers for kernel ``name`` at A's size, dtype,
+    device and batch (``A`` is one matrix or the (S, n, n) stack). The
+    kernels capture their launch sequence once per buffer as a CUDA graph,
+    so the buffer of one (kernel, n, dtype, batch) lives as long as the
+    process and is reused by every call."""
     import torch
 
-    key = (name, A.shape[0], A.dtype, A.device)
+    key = (name, A.shape[-1], A.dtype, A.device, batch)
     buf = _args_buffers.get(key)
     if buf is None:
-        buf = torch.empty((ARGS_BYTES // 8,), dtype=torch.int64, device=A.device)
+        buf = torch.empty((batch * ARGS_BYTES // 8,), dtype=torch.int64, device=A.device)
         _args_buffers[key] = buf
     return buf
 
 
-def check_input(A, name: str) -> None:
-    """What both kernels take: a square, contiguous f32/f64 CUDA matrix."""
+def check_input(A, name: str, batched: bool = False) -> None:
+    """What both kernels take: a square, contiguous f32/f64 CUDA matrix, or
+    for the batched entry points an (S, n, n) stack of them."""
     import torch
 
     if not A.is_cuda:
         raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor")
     if A.dtype not in (torch.float32, torch.float64):
         raise TypeError(f"{name}: dtype {A.dtype} is not float32/float64")
-    if A.dim() != 2 or A.shape[0] != A.shape[1]:
-        raise ValueError(f"{name}: expected a square matrix, got {tuple(A.shape)}")
+    dims = 3 if batched else 2
+    if A.dim() != dims or A.shape[-2] != A.shape[-1]:
+        what = "an (S, n, n) stack of square matrices" if batched else "a square matrix"
+        raise ValueError(f"{name}: expected {what}, got {tuple(A.shape)}")
+    if batched and not 1 <= A.shape[0] <= 65535:
+        raise ValueError(f"{name}: the batch must hold 1 to 65535 matrices, got {A.shape[0]}")
     if not A.is_contiguous():
         raise ValueError(f"{name}: the input must be contiguous (row-major)")
 

@@ -31,8 +31,10 @@ read per factorization of the ladder, one for the first trial, one per SOC
 round and per backtracking trial; ``jit_mode=iteration`` adds one read of
 the :class:`FusedScalars` bundle, ``jit_mode=solve`` folds its status into
 the first of them. Nothing is captured in a CUDA graph here (ROADMAP.md
-item 13b). The parametric branch (batch_solve's scenario parameter) and a
-mesh-sharded QN state raise, naming ROADMAP items 14 and 15.
+item 13b). A parametric problem (batch_solve's scenario parameter) has no
+single-problem fused step, as in ``hiop_tpu``: its family runs through
+:func:`hiop_tpu_torch.optimization.batch_solve.solve_batched`. A
+mesh-sharded QN state raises, naming ROADMAP item 15.
 """
 
 from __future__ import annotations
@@ -373,9 +375,10 @@ def _on_device(v, dt, like):
 
 def _build_fused_step_uncached(nlp, consts, mode: str = "newton"):
     if getattr(nlp, "parametric", False):
-        raise _not_ported(
-            "the fused step of a parametric problem (batch_solve's scenario parameter)",
-            "item 14: batching and decomposition",
+        raise NotImplementedError(
+            "a parametric problem (batch_solve's scenario parameter) has no "
+            "single-problem fused solve; solve its family with "
+            "hiop_tpu_torch.optimization.batch_solve.solve_batched"
         )
     if mode == "qn" and getattr(nlp, "_mesh", None) is not None:
         raise _not_ported(

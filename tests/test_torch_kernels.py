@@ -298,3 +298,43 @@ def test_cuda_dense_examples_reach_their_saved_objectives(cuda_device):
     ref, tol = dense_ex2.SELFCHECK[500]
     assert r.status.is_success and dense_ex2.selfcheck_ok(r.obj, ref, tol)
     assert kernels.stats.sizes[("cholesky", 500, "float64")] > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,S", [(300, 3), (384, 8)])
+def test_cuda_batched_factors_equal_single_launches(cuda_device, n, S, dtype):
+    """The batched entry points (one launch sequence over S matrices,
+    gridDim.z = S) give each matrix bit for bit the single-matrix kernel's
+    factor, the Cholesky's NaN fill included, and the batched LDL^T
+    wrapper's n_neg/ok per matrix those of the single one."""
+    A = torch.stack([torch.from_numpy(_spd(n, s) / n) for s in range(S)]).to(dtype).to(cuda_device)
+    A[1] = -A[1]   # not positive definite: the NaN lower triangle
+    Lb = tchol.cholesky_batched(A)
+    for s in range(S):
+        assert torch.equal(Lb[s].nan_to_num(7.0), tchol.cholesky(A[s]).nan_to_num(7.0))
+    lower = torch.tril(torch.ones(n, n, dtype=torch.bool, device=cuda_device))
+    assert bool(torch.isnan(Lb[1][lower]).all()) and bool(torch.isfinite(Lb[0]).all())
+    M = torch.stack([torch.from_numpy(_saddle(n, s)) for s in range(S)]).to(dtype).to(cuda_device)
+    Wb, db = tldl.ldl_nopiv_batched(M)
+    fb = tldl.ldl_factor_batched(M)
+    for s in range(S):
+        W1, d1 = tldl.ldl_nopiv(M[s])
+        assert torch.equal(Wb[s], W1) and torch.equal(db[s], d1)
+        f1 = tldl.ldl_factor(M[s])
+        assert torch.equal(fb.L[s], f1.L)
+        assert int(fb.n_neg[s]) == int(f1.n_neg) and bool(fb.ok[s]) == bool(f1.ok)
+    assert kernels.stats.batches[("cholesky_batched", n, str(dtype).replace("torch.", ""), S)] > 0
+
+
+@pytest.mark.gpu
+def test_cuda_vmap_rule_launches_one_batched_kernel(cuda_device):
+    """Under torch.func.vmap the wrappers' rules make one batched launch
+    for all lanes, with the single launches' bits."""
+    from torch.func import vmap
+
+    A = torch.stack([torch.from_numpy(_spd(200, s) / 200) for s in range(4)]).to(cuda_device)
+    before = kernels.stats.launches["cholesky_batched"]
+    L = vmap(tchol.cholesky)(A)
+    assert kernels.stats.launches["cholesky_batched"] == before + 1
+    assert all(torch.equal(L[s], tchol.cholesky(A[s])) for s in range(4))

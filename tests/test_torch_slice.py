@@ -113,14 +113,15 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
         assert '"ok"' not in out.stdout
 
 
-#: (options, formulation attributes, the ROADMAP item named): the fused
-#: state of a parametric problem (batch_solve's) and a mesh-sharded fused
-#: quasi-Newton state, then two options
+#: (options, formulation attributes, what the message names): the fused
+#: state of a parametric problem (batch_solve's: its family runs through
+#: solve_batched, as in hiop_tpu) and a mesh-sharded fused quasi-Newton
+#: state, then two options
 UNPORTED = [
-    (dict(jit_mode="solve"), dict(parametric=True), "item 14"),
-    (dict(jit_mode="iteration"), dict(_mesh="mesh"), "item 15"),
-    (dict(checkpoint_format="orbax"), {}, "item 15"),
-    (dict(profile_dir="trace"), {}, "item 16"),
+    (dict(jit_mode="solve"), dict(parametric=True), "batch_solve.solve_batched"),
+    (dict(jit_mode="iteration"), dict(_mesh="mesh"), "ROADMAP.md section 1, item 15"),
+    (dict(checkpoint_format="orbax"), {}, "ROADMAP.md section 1, item 15"),
+    (dict(profile_dir="trace"), {}, "ROADMAP.md section 1, item 16"),
 ]
 
 
@@ -141,7 +142,7 @@ def test_unported_options_raise(opts, attrs, item):
     solver = solver_cls(nlp)
     for k, v in attrs.items():
         setattr(nlp, k, v)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md section 1, {item}"):
+    with pytest.raises(NotImplementedError, match=item):
         solver.run()
 
 
