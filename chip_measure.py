@@ -44,6 +44,18 @@ JSON object per line:
   master solves, batched recourse and host recourse. ``chip_smoke.py``
   phase 33 runs the example's driver default (B=16, 4 outages).
 
+- ``dist``: the quasi-Newton ``dense_ex1`` at n = ``DIST_N`` capped at
+  ``DIST_MAX_ITER`` iterations in one process and sharded over 2 ranks
+  (and over 4 with four cards): iterations, s/iter, host reads per
+  iteration and peak memory of each (the counterpart of the JAX package's
+  ``test_two_process_qn_large_n_timing``); then over 2 ranks against one
+  process: QN ``dense_ex1`` at ``chip_smoke.QN_N`` (iterations equal,
+  objective to 1e-9), ACOPF B=``DIST_ACOPF_B`` under MDS Newton
+  (iterations equal, objective to 1e-8, ``SELFCHECK``), ``pridec_ex1``
+  20/100 with the scenario partition and ``accum_local`` (iterations,
+  objective to 1e-8), and the allreduce ladder. One rank per card over
+  NCCL with two cards or more; two ranks share one card over gloo.
+
 ``python3 chip_measure.py RUN ...`` runs only the named runs (default:
 all, in the order above).
 
@@ -259,10 +271,18 @@ def mp_run(torch, K, acopf_mds) -> dict:
         sizes={f"{k[0]}:{k[1]}:{k[2]}": v for k, v in K.stats.sizes.items()})
 
 
-RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp", "dense", "pridec")
+RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp", "dense", "pridec", "dist")
+
+#: the ``dist`` run: size and iteration cap of the large QN solve, and the
+#: ACOPF size of its parity cases (tests/test_multiprocess.py:70)
+DIST_N = 2_000_000
+DIST_MAX_ITER = 8
+DIST_ACOPF_B = 32
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dist-rank"]:
+        return dist_rank()
     if len(sys.argv) == 3 and sys.argv[1] == "--breakdown":
         import torch
 
@@ -314,7 +334,126 @@ def main() -> int:
         dense_run(torch, K, card)
     if "pridec" in runs:
         pridec_run(torch, K, card)
+    if "dist" in runs:
+        dist_run(torch, K, card)
     return 0
+
+
+def _timed(torch, run) -> dict:
+    """One solve, ended by ``torch.cuda.synchronize()``, with its host reads
+    counted."""
+    from chip_smoke import _count_syncs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _count_syncs(torch) as syncs:
+        r = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    its = max(r.iterations, 1)
+    return dict(status=r.status.name, iterations=r.iterations, obj=r.obj, wall_s=wall,
+                s_per_iter=wall / its, reads_per_iter=syncs["syncs"] / its,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _dist_cases(mesh=None) -> dict:
+    """The ``dist`` run's solves by name, sharded over ``mesh`` when given."""
+    from chip_smoke import QN_N, _pridec_accum_local
+    from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpDenseConstraints, NlpMDS, NlpOptions
+    from hiop_tpu_torch.examples import acopf_mds, dense_ex1
+    from hiop_tpu_torch.parallel.mesh import shard_formulation
+
+    def qn(n, **opts):
+        def run():
+            o = NlpOptions()
+            o.update(verbosity_level=0, **opts)
+            nlp = NlpDenseConstraints(dense_ex1.DenseConsEx1(n), o)
+            if mesh is not None:
+                shard_formulation(nlp, mesh)
+            return FilterIPMQuasiNewton(nlp).run()
+        return run
+
+    def acopf():
+        nlp = NlpMDS(acopf_mds.AcopfMds(DIST_ACOPF_B), acopf_mds.acopf_options(verbosity_level=0))
+        if mesh is not None:
+            shard_formulation(nlp, mesh)
+        return FilterIPMNewton(nlp).run()
+
+    return {"qn_large": qn(DIST_N, max_iter=DIST_MAX_ITER), "dense_ex1": qn(QN_N),
+            f"acopf B={DIST_ACOPF_B}": acopf, "pridec_ex1 accum_local": _pridec_accum_local}
+
+
+def dist_rank() -> int:
+    """One rank of the ``dist`` run (``chip_measure.py --dist-rank
+    CASE...``): one JSON line per case."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.parallel import collectives_bench
+    from hiop_tpu_torch.parallel.mesh import make_mesh
+    from hiop_tpu_torch.parallel.multiprocess import initialize
+
+    rank, world = initialize()
+    K.load()
+    mesh = make_mesh()
+    cases = _dist_cases(mesh)
+    for name in sys.argv[2:]:
+        if name == "ladder":
+            out = {"us_per_allreduce": {c: dt * 1e6 for c, dt in collectives_bench.run(mesh)}}
+        else:
+            K.stats.reset()
+            out = dict(_timed(torch, cases[name]), launches=dict(K.stats.launches))
+        print(json.dumps(dict(out, case=name, rank=rank, world=world,
+                              backend=torch.distributed.get_backend())), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _launch_dist(world: int, cases, backend: str) -> dict:
+    """The cases over ``world`` ranks: rank 0's results by case, after
+    checking every rank agrees."""
+    from hiop_tpu_torch.parallel.multiprocess import launch
+
+    res = launch([os.path.join(HERE, "chip_measure.py"), "--dist-rank", *cases], num_processes=world,
+                 platform="cuda", backend=backend, timeout=1200, cwd=HERE)
+    ranks = [{d["case"]: d for d in (json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{"))}
+             for r in res]
+    for name in cases:
+        for d in ranks[1:]:
+            for k in ("status", "iterations", "obj"):
+                if d[name].get(k) != ranks[0][name].get(k):
+                    raise AssertionError(f"dist {name} over {world} ranks: ranks differ in {k}")
+    return ranks[0]
+
+
+def dist_run(torch, K, card) -> None:
+    from hiop_tpu_torch.examples import acopf_mds
+
+    n_dev = torch.cuda.device_count()
+    backend = "nccl" if n_dev >= 2 else "gloo"
+    cases = _dist_cases()
+    one = {name: _timed(torch, run) for name, run in cases.items()}
+    t0 = time.perf_counter()
+    two = _launch_dist(2, ["qn_large", "dense_ex1", f"acopf B={DIST_ACOPF_B}", "pridec_ex1 accum_local",
+                           "ladder"], backend)
+    four = _launch_dist(4, ["qn_large", "ladder"], backend) if n_dev >= 4 else None
+    wall = time.perf_counter() - t0
+    saved, tol = acopf_mds.SELFCHECK[DIST_ACOPF_B]
+    parity = {}
+    for name, rel in (("dense_ex1", 1e-9), (f"acopf B={DIST_ACOPF_B}", 1e-8), ("pridec_ex1 accum_local", 1e-8)):
+        a, b = two[name], one[name]
+        parity[name] = (a["status"] == b["status"] and a["iterations"] == b["iterations"]
+                        and abs(a["obj"] - b["obj"]) <= rel * max(1.0, abs(b["obj"])))
+    a = two[f"acopf B={DIST_ACOPF_B}"]
+    parity["acopf SELFCHECK"] = abs(a["obj"] - saved) <= tol * max(1.0, abs(saved))
+    print(json.dumps({"dist": dict(n=DIST_N, max_iter=DIST_MAX_ITER, devices=n_dev, backend=backend,
+                                   one_process=one,
+                                   two_ranks=two, four_ranks=four, launches_wall_s=wall, parity=parity),
+                      "card": card}), flush=True)
+    if not all(parity.values()):
+        raise AssertionError(f"dist: parity {parity}")
 
 
 def pridec_run(torch, K, card) -> None:

@@ -176,7 +176,26 @@ the script exits nonzero):
     driver default, B=16 with 4 outages, to ``hiop_tpu``'s objective
     (``PRIDEC_REF``): PriDec iterations, the lanes solved alone on the
     host, seconds in master solves against batched and host recourse
-    (``chip_measure.py pridec`` runs B=32 with 8 outages).
+    (``chip_measure.py pridec`` runs B=32 with 8 outages);
+34. the variable-axis mesh (``parallel/mesh.py``, DTensor) over an
+    in-process world-1 NCCL group on cuda:0: QN ``dense_ex1`` at
+    n = ``QN_N`` sharded, under the general loop and ``jit_mode=iteration``,
+    with the unsharded run's iterations and objective to 1e-9 (and phase
+    10's); ACOPF B=``FULL_B`` under MDS Newton sharded, f32, capped at
+    ``SHARD_B512_MAX_ITER``, each iteration's objective the unsharded
+    run's to 1e-8; ``schur_js_triplets_sharded`` at B=``FULL_B``'s pattern
+    against ``schur_js_triplets`` to 1e-12; the allreduce ladder. Prints
+    s/iter sharded against unsharded and host reads per iteration;
+35. two ranks on the one card through ``parallel.multiprocess.launch``
+    (this script with ``--rank-worker``), gloo carrying the collectives of
+    CUDA tensors (its all-gathers through c10d's synchronous collective,
+    ``parallel/mesh.py``): QN ``dense_ex1`` n = ``QN_N`` (phase 10's
+    iterations, objective to 1e-9), ACOPF B=``MP_ACOPF_B`` (phase 5's
+    iterations, objective to 1e-8 and ``SELFCHECK``), ``pridec_ex1``
+    20/100 with the scenario partition and ``accum_local`` (the
+    one-process host loop's iterations and objective), and the gloo
+    allreduce ladder. ``chip_measure.py dist`` runs ranks on separate
+    cards (NCCL).
 
 Each main-path phase sets the launch counts to zero just before each solve
 and reads them just after; phases 14-16 also read them around each nested
@@ -184,8 +203,9 @@ FR solve (``fr_path_launches`` in the ``kernels`` line) and time the
 kernels there (``fr_path_kernel_ms``); phases 18-22 give theirs as
 ``sparse_path_launches`` and ``sparse_path_kernel_ms``, phases 27-29 as
 ``fused_path_launches``, phases 31-33 their batched launches as
-``batched_path_launches`` (by ``name:n:dtype:S``), and phase 30's rows
-as ``batched_shapes``. The last three lines of
+``batched_path_launches`` (by ``name:n:dtype:S``), phase 30's rows
+as ``batched_shapes``, and phases 34-35 the sharded runs' launches
+(phase 35: rank 0's) as ``sharded_path_launches``. The last three lines of
 standard output are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
@@ -590,7 +610,13 @@ def phase_qn(torch) -> dict:
         _check(r.status.is_success, f"{name}: status {r.status.name}")
         _check(dense_ex1.selfcheck_ok(r.obj, ref, tol), f"{name}: obj {r.obj!r} vs saved {ref!r} (tol {tol:g})")
         out[name] = sizes
+        QN_RESULTS[name] = (r, wall)
     return out
+
+
+#: phase 10's results by run, the references of the sharded runs of
+#: phases 34-35
+QN_RESULTS: dict = {}
 
 
 def _forced_safe_newton(filter_ipm):
@@ -2226,7 +2252,265 @@ def phase_pridec(torch) -> dict:
     return out
 
 
+#: phase 34: the sharded ACOPF run at full width, capped as
+#: tests/test_sharding.py:296-320 caps it (kkt_fact_dtype=float32)
+SHARD_B512_MAX_ITER = 3
+
+#: phase 35: the ACOPF size of the two-process run
+#: (tests/test_multiprocess.py:70-95) and its launch time limit (the
+#: ranks start, load the kernels built in phase 2 and run four cases)
+MP_ACOPF_B = 32
+MP_TIMEOUT_S = 300.0
+
+#: phase 35: the allreduce ladder over gloo (host-staged copies of CUDA
+#: tensors): the rungs and repetitions it has time for
+MP_LADDER = dict(num_sizes=6, reps=5)
+
+def _recording(cls):
+    """A subclass of the problem class that records each iteration's
+    objective (through the iterate callback)."""
+
+    class Recording(cls):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.objs = []
+
+        def iterate_callback(self, info):
+            self.objs.append(float(info.obj_value))
+            return True
+
+    return Recording
+
+
+def _sharded_case(torch, name, run, need):
+    """One solve with the launch counts at zero and the host reads counted:
+    (result, wall, reads, sizes)."""
+    with _count_syncs(torch) as syncs:
+        r, wall, _, sizes = _solve_phase(torch, name, run, need)
+    return r, wall, syncs["syncs"], sizes
+
+
+def phase_mesh(torch, dev) -> dict:
+    """Phase 34: the variable-axis mesh over an in-process world-1 NCCL
+    group on cuda:0. Returns, by run, the sharded runs' launches."""
+    from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpDenseConstraints, NlpMDS
+    from hiop_tpu_torch.examples import acopf_mds, dense_ex1
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+    from hiop_tpu_torch.optimization import filter_ipm
+    from hiop_tpu_torch.parallel import collectives_bench
+    from hiop_tpu_torch.parallel.mesh import make_mesh, shard_formulation, to_host
+
+    _log("[34] the variable-axis mesh: an in-process world-1 NCCL mesh on cuda:0 (torch "
+         f"{torch.__version__}; the small systems on each rank's replica at named sites only: an "
+         "operation DTensor has no rule for raises)")
+    mesh = make_mesh()
+    _check(torch.distributed.get_backend() == "nccl" and mesh.size() == 1,
+           f"phase 34: mesh of {mesh.size()} over {torch.distributed.get_backend()}")
+    out = {}
+    need = {"cholesky": "the low-rank KKT's m x m Schur system"}
+
+    def qn(shard, **opts):
+        nlp = NlpDenseConstraints(dense_ex1.DenseConsEx1(QN_N), _qn_options(**opts))
+        if shard:
+            shard_formulation(nlp, mesh)
+        return FilterIPMQuasiNewton(nlp).run
+
+    ref10, _ = QN_RESULTS["dense_ex1"]
+    for mode in ("kernels", "iteration"):
+        r0, w0, n0, _ = _sharded_case(torch, f"dense_ex1 n={QN_N} jit_mode={mode}, unsharded",
+                                      qn(False, jit_mode=mode), need)
+        r1, w1, n1, sizes = _sharded_case(torch, f"dense_ex1 n={QN_N} jit_mode={mode}, sharded",
+                                          qn(True, jit_mode=mode), need)
+        i0, i1 = max(r0.iterations, 1), max(r1.iterations, 1)
+        _log(f"  dense_ex1 jit_mode={mode}: s/iter sharded {w1 / i1:.4f} against unsharded {w0 / i0:.4f} "
+             f"({w1 / i1 / (w0 / i0):.2f}x); host reads per iteration {n1 / i1:.2f} against {n0 / i0:.2f}")
+        _check(r1.status.name == "Solve_Success", f"sharded dense_ex1 ({mode}): status {r1.status.name}")
+        _check(r1.iterations == r0.iterations, f"sharded dense_ex1 ({mode}): {r1.iterations} iterations, "
+               f"unsharded {r0.iterations}")
+        _check(abs(r1.obj - r0.obj) <= 1e-9 * abs(r0.obj), f"sharded dense_ex1 ({mode}): obj {r1.obj!r} "
+               f"against {r0.obj!r}")
+        if mode == "kernels":
+            _check(r1.iterations == ref10.iterations and abs(r1.obj - ref10.obj) <= 1e-9 * abs(ref10.obj),
+                   f"sharded dense_ex1: {r1.iterations} iterations, obj {r1.obj!r}; phase 10 "
+                   f"{ref10.iterations}, {ref10.obj!r}")
+        out[f"dense_ex1 {mode}"] = sizes
+
+    Rec = _recording(acopf_mds.AcopfMds)
+
+    def acopf(shard, prob):
+        def run():
+            nlp = NlpMDS(prob, acopf_mds.acopf_options(verbosity_level=0, max_iter=SHARD_B512_MAX_ITER,
+                                                       kkt_fact_dtype="float32"))
+            if shard:
+                shard_formulation(nlp, mesh)
+            return FilterIPMNewton(nlp).run()
+        return run
+
+    probs = [Rec(FULL_B), Rec(FULL_B)]
+    r0, w0, n0, _ = _sharded_case(torch, f"ACOPF B={FULL_B} MDS Newton, unsharded",
+                                  acopf(False, probs[0]), {"cholesky": "quick tier"})
+    r1, w1, n1, sizes = _sharded_case(torch, f"ACOPF B={FULL_B} MDS Newton, sharded",
+                                      acopf(True, probs[1]), {"cholesky": "quick tier"})
+    _log(f"  ACOPF B={FULL_B}: s/iter sharded {w1 / 3:.4f} against unsharded {w0 / 3:.4f}; host reads per "
+         f"iteration {n1 / 3:.2f} against {n0 / 3:.2f}; objectives by iteration {probs[1].objs} against "
+         f"{probs[0].objs}")
+    _check(r0.iterations == r1.iterations == SHARD_B512_MAX_ITER,
+           f"ACOPF B={FULL_B}: {r1.iterations} sharded iterations, {r0.iterations} unsharded")
+    _check(len(probs[1].objs) == len(probs[0].objs) and all(
+        abs(a - b) <= 1e-8 * max(1.0, abs(b)) for a, b in zip(probs[1].objs, probs[0].objs)),
+        "ACOPF B=512: the sharded iterations' objectives differ from the unsharded run's")
+    _check(abs(r1.obj - r0.obj) <= 1e-8 * max(1.0, abs(r0.obj)),
+           f"ACOPF B={FULL_B}: obj {r1.obj!r} against {r0.obj!r}")
+    out[f"acopf B={FULL_B}"] = sizes
+
+    # the sharded triplet Schur assembly at B=512's pattern
+    nlp = NlpMDS(acopf_mds.AcopfMds(FULL_B), acopf_mds.acopf_options(verbosity_level=0))
+    nlp.finalize_initialization()
+    strat = filter_ipm._MdsStrategy(nlp, nlp.log, nlp.runstats)
+    m = nlp.m_eq + nlp.m_ineq
+    g = torch.Generator(device=dev).manual_seed(34)
+    nnz = nlp.jac_sp_eq_rows.size + nlp.jac_sp_in_rows.size
+    vals = torch.randn(nnz, dtype=torch.float64, device=dev, generator=g)
+    kinv = torch.rand(nlp.n_sparse, dtype=torch.float64, device=dev, generator=g) + 0.5
+    S_ref = kkt_mds.schur_js_triplets(vals, kinv, strat._js_pairs, m)
+    S_sh = kkt_mds.schur_js_triplets_sharded(vals, kinv, strat._js_pairs, m, mesh)
+    ms_ref = _event_ms(torch, lambda: kkt_mds.schur_js_triplets(vals, kinv, strat._js_pairs, m), 5)
+    ms_sh = _event_ms(torch, lambda: kkt_mds.schur_js_triplets_sharded(vals, kinv, strat._js_pairs, m, mesh), 5)
+    rel = float((torch.as_tensor(to_host(S_sh), device=dev) - S_ref).abs().max() / S_ref.abs().max())
+    _log(f"  schur_js_triplets_sharded B={FULL_B} (m={m}, {strat._js_pairs[0].numel()} pairs): rel diff "
+         f"{rel:.2e}; {ms_sh:.3f} ms against {ms_ref:.3f} ms unsharded")
+    _check(rel <= 1e-12, f"schur_js_triplets_sharded: rel diff {rel:.2e}")
+
+    res = collectives_bench.run(mesh)
+    _log("  allreduce ladder (NCCL, world 1): " + ", ".join(f"{c} doubles {dt * 1e6:.1f} us" for c, dt in res))
+    torch.distributed.destroy_process_group()
+    return out
+
+
+def _qn_options(**opts):
+    from hiop_tpu_torch import NlpOptions
+
+    o = NlpOptions()
+    o.update(verbosity_level=0, **opts)
+    return o
+
+
+def phase_two_ranks(torch, r_acopf32) -> dict:
+    """Phase 35: two ranks on the one card through ``launch()``, gloo
+    carrying the collectives of CUDA tensors. Returns, by run, rank 0's
+    launches."""
+    from hiop_tpu_torch.parallel.multiprocess import launch
+
+    _log("[35] two ranks on the one card through launch(), gloo carrying collectives of CUDA tensors")
+    t0 = time.perf_counter()
+    res = launch([os.path.join(HERE, "chip_smoke.py"), "--rank-worker"], num_processes=2,
+                 platform="cuda", backend="gloo", timeout=MP_TIMEOUT_S, cwd=HERE)
+    wall = time.perf_counter() - t0
+    ranks = [{d["case"]: d for d in (json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{"))}
+             for r in res]
+    _log(f"  launch: {wall:.1f} s for both ranks")
+    for case in ranks[0]:
+        for k in ("obj", "iterations", "status"):
+            _check(ranks[0][case].get(k) == ranks[1][case].get(k), f"phase 35 {case}: ranks differ in {k}")
+        d = ranks[0][case]
+        _log(f"  {case}: " + ", ".join(f"{k} {v}" for k, v in d.items() if k not in ("case", "rank")))
+
+    ref, _ = QN_RESULTS["dense_ex1"]
+    d = ranks[0]["dense_ex1"]
+    _check(d["status"] == "Solve_Success" and d["iterations"] == ref.iterations
+           and abs(d["obj"] - ref.obj) <= 1e-9 * abs(ref.obj),
+           f"two-rank dense_ex1: {d['iterations']} iterations, obj {d['obj']!r}; one process "
+           f"{ref.iterations}, {ref.obj!r}")
+    d = ranks[0][f"acopf B={MP_ACOPF_B}"]
+    from hiop_tpu_torch.examples.acopf_mds import SELFCHECK
+
+    saved, tol = SELFCHECK[MP_ACOPF_B]
+    _check(d["status"] == "Solve_Success" and d["iterations"] == r_acopf32.iterations
+           and abs(d["obj"] - r_acopf32.obj) <= 1e-8 * max(1.0, abs(r_acopf32.obj))
+           and abs(d["obj"] - saved) <= tol * max(1.0, abs(saved)),
+           f"two-rank ACOPF B={MP_ACOPF_B}: {d['iterations']} iterations, obj {d['obj']!r}; one process "
+           f"{r_acopf32.iterations}, {r_acopf32.obj!r}")
+    one = _pridec_accum_local()
+    d = ranks[0]["pridec_ex1 accum_local"]
+    _log(f"  pridec_ex1 20/100 accum_local in one process: {one.status.name} in {one.iterations}, "
+         f"obj {one.obj!r}")
+    _check(d["iterations"] == one.iterations and abs(d["obj"] - one.obj) <= 1e-8 * max(1.0, abs(one.obj)),
+           f"two-rank pridec_ex1: {d['iterations']} iterations, obj {d['obj']!r}")
+    return {case: d.get("sizes", {}) for case, d in ranks[0].items()}
+
+
+def _pridec_accum_local():
+    """``pridec_ex1`` 20/100 through the host loop with ``accum_local``:
+    this rank's scenario partition, then the cross-process reduce (in one
+    process every scenario, no reduce)."""
+    from hiop_tpu_torch import PriDecOptions, PriDecSolver
+    from hiop_tpu_torch.examples import pridec_ex1
+
+    prob = pridec_ex1.PriDecEx1(20, 100)
+    prob.batched = False
+    o = PriDecOptions()
+    o.update(verbosity_level=0, accum_local="true")
+    return PriDecSolver(prob, o).run()
+
+
+def rank_worker() -> int:
+    """The rank program of phase 35 (``chip_smoke.py --rank-worker``, run by
+    ``launch``): each case sharded over the two ranks, one JSON line per
+    case with its result, wall and this rank's kernel launches."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    from hiop_tpu_torch import FilterIPMNewton, FilterIPMQuasiNewton, NlpDenseConstraints, NlpMDS
+    from hiop_tpu_torch.examples import acopf_mds, dense_ex1
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.parallel import collectives_bench
+    from hiop_tpu_torch.parallel.mesh import make_mesh, shard_formulation
+    from hiop_tpu_torch.parallel.multiprocess import initialize
+
+    rank, world = initialize()
+    K.load()
+    mesh = make_mesh()
+
+    def case(name, run):
+        torch.cuda.synchronize()
+        K.stats.reset()
+        t0 = time.perf_counter()
+        with _count_syncs(torch) as syncs:
+            r = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        its = max(r.iterations, 1)
+        print(json.dumps(dict(
+            case=name, rank=rank, world=world, status=r.status.name, iterations=r.iterations, obj=r.obj,
+            wall_s=round(wall, 3), s_per_iter=round(wall / its, 4), reads_per_iter=round(syncs["syncs"] / its, 2),
+            launches=dict(K.stats.launches),
+            sizes={f"{k[0]}:{k[1]}:{k[2]}": v for k, v in sorted(K.stats.sizes.items())})), flush=True)
+
+    def qn():
+        nlp = NlpDenseConstraints(dense_ex1.DenseConsEx1(QN_N), _qn_options())
+        shard_formulation(nlp, mesh)
+        return FilterIPMQuasiNewton(nlp).run()
+
+    def acopf():
+        nlp = NlpMDS(acopf_mds.AcopfMds(MP_ACOPF_B), acopf_mds.acopf_options(verbosity_level=0))
+        shard_formulation(nlp, mesh)
+        return FilterIPMNewton(nlp).run()
+
+    case("dense_ex1", qn)
+    case(f"acopf B={MP_ACOPF_B}", acopf)
+    case("pridec_ex1 accum_local", _pridec_accum_local)
+    t0 = time.perf_counter()
+    res = collectives_bench.run(mesh, **MP_LADDER)
+    print(json.dumps(dict(case="allreduce ladder (gloo)", rank=rank, obj=None, iterations=None, status=None,
+                          us_per_allreduce={c: round(dt * 1e6, 1) for c, dt in res},
+                          wall_s=round(time.perf_counter() - t0, 3))), flush=True)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--rank-worker"]:
+        return rank_worker()
     try:
         import torch
     except ImportError:
@@ -2287,6 +2571,7 @@ def main() -> int:
     ref, tol = acopf_mds.SELFCHECK[32]
     _check(r.status.is_success, f"acopf B=32: status {r.status.name}")
     _check(abs(r.obj - ref) <= tol * max(1.0, abs(ref)), f"acopf B=32: obj {r.obj!r} vs saved {ref!r}")
+    r_acopf32 = r
 
     _log(f"[6] main path at full width: ACOPF B=512 (S 4608^2, saddle 4710^2 padded to 4736^2), "
          f"capped at max_iter={B512_MAX_ITER}: past the escalation to the device LDL^T tier, "
@@ -2332,6 +2617,8 @@ def main() -> int:
     batched_rows = phase_batched_kernels(torch, dev)
     batched = phase_contingencies(torch)
     batched.update(phase_pridec(torch))
+    sharded = phase_mesh(torch, dev)
+    sharded.update(phase_two_ranks(torch, r_acopf32))
 
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
@@ -2378,6 +2665,9 @@ def main() -> int:
                     run: {k: v for k, v in got.items() if k.startswith(name + "_batched:")
                           and k.split(":")[2] == dname}
                     for run, got in batched.items()},
+                sharded_path_launches={
+                    run: {k: v for k, v in got.items() if k.startswith(name + ":") and k.endswith(dname)}
+                    for run, got in sharded.items()},
                 batched_shapes=[x for x in batched_rows[name] if x["dtype"] == dname],
                 **({"sparse_normaleqn_shape": sparse["sparse_ex1 normaleqn"]["alone"]}
                    if name == "cholesky" and dname == "float64" else {}),

@@ -6,9 +6,10 @@ string options (mem_space, mem_backend, exec_policies, compute_mode) to a
 ``torch.device``:
 
 - ``compute_mode="cpu"`` pins the CPU (the tests pass this);
-- ``"auto"``, ``"gpu"``, ``"tpu"`` and ``"hybrid"`` mean ``cuda:0``, and
-  raise when no CUDA device is visible: a solve never carries on on the
-  CPU unless the caller asked for it.
+- ``"auto"``, ``"gpu"``, ``"tpu"`` and ``"hybrid"`` mean the current CUDA
+  device (``cuda:0``, or a rank's own card), and raise when no CUDA device
+  is visible: a solve never carries on on the CPU unless the caller asked
+  for it.
 
 The hot dense factorizations dispatch on the device of their input (the
 hand-written CUDA kernels for a CUDA tensor, their plain PyTorch versions
@@ -28,7 +29,9 @@ def resolve_device(compute_mode: str) -> torch.device:
             f"compute_mode={compute_mode!r} needs a CUDA device and none is "
             "visible; pass compute_mode='cpu' to solve on the CPU"
         )
-    return torch.device("cuda", 0)
+    # cuda:0 in one process; a rank of a multi-process run takes the card
+    # ``parallel.multiprocess.initialize`` set current
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 def on_accelerator(device: torch.device) -> bool:

@@ -42,6 +42,7 @@ from hiop_tpu_torch.interface.base import INF
 
 class PriDecEx1(PriDecProblem):
     batched = True
+    splits_over_devices = True
 
     def __init__(self, nx: int = 20, S: int = 100, compute_mode: str = "auto"):
         self.nx = nx
@@ -88,8 +89,11 @@ class PriDecEx1(PriDecProblem):
         return r.x, r.obj
 
     def eval_rterms_batched(self, idxs, x):
-        xt = torch.as_tensor(np.asarray(x, np.float64), device=self.device)
-        it = torch.as_tensor(np.asarray(idxs), dtype=torch.int64, device=self.device)
+        """On the device of ``x`` when it is a tensor (a scenario slice of
+        a split batch), else on the problem's device."""
+        dev = x.device if isinstance(x, torch.Tensor) else self.device
+        xt = torch.as_tensor(x, dtype=torch.float64, device=dev)
+        it = torch.as_tensor(idxs, dtype=torch.int64, device=dev)
         return self._rterm_val(it, xt), self._rterm_grad(it, xt)
 
     def eval_f_rterm(self, idx, x):

@@ -26,6 +26,7 @@ from hiop_tpu_torch.backends.execspace import resolve_device
 from hiop_tpu_torch.interface.base import INF, NlpProblem
 from hiop_tpu_torch.optimization.iterate import Bounds
 from hiop_tpu_torch.utils.logger import Logger, Verbosity
+from hiop_tpu_torch.utils.dtensor import plain
 from hiop_tpu_torch.utils.options import NlpOptions
 from hiop_tpu_torch.utils.runstats import RunStats
 
@@ -243,14 +244,24 @@ class NlpFormulation:
     def _dev(self, a) -> torch.Tensor:
         return torch.as_tensor(a, dtype=torch.float64, device=self.device)
 
+    def _for_problem(self, a):
+        """``a`` as the problem's evaluations take it: this rank's replica
+        of a DTensor for a problem that takes plain tensors only
+        (``takes_dtensor``), else as it is."""
+        if getattr(self, "_mesh", None) is None or getattr(self.problem, "takes_dtensor", True):
+            return a
+        return plain(a)
+
     def eval_f(self, x) -> torch.Tensor:
         self.runstats.n_eval_obj += 1
+        x = self._for_problem(x)
         with self.runstats.tm_eval_obj:
             f = self._dev(self.problem.eval_f(x))
         return self.scale_obj * f
 
     def eval_grad_f(self, x):
         self.runstats.n_eval_grad += 1
+        x = self._for_problem(x)
         with self.runstats.tm_eval_grad:
             g = self._dev(self.problem.eval_grad_f(x))
         return self.scale_obj * g
@@ -263,6 +274,7 @@ class NlpFormulation:
         return falls back to the one-call convention with the internal
         eq/ineq split (hiopNlpFormulation.hpp:389-401)."""
         self.runstats.n_eval_cons += 1
+        x = self._for_problem(x)
         with self.runstats.tm_eval_cons:
             subset = getattr(self.problem, "eval_cons_subset", None)
             c_eq = subset(x, self.eq_idx) if subset is not None else NotImplemented
@@ -291,9 +303,9 @@ class NlpFormulation:
         """Recombine (yc, yd) into user constraint order with scaling."""
         lam = torch.zeros((self.m,), dtype=torch.float64, device=self.device)
         if self.m_eq:
-            lam[self._eq_idx_t] = yc * self.scale_cons_eq
+            lam[self._eq_idx_t] = plain(yc * self.scale_cons_eq)
         if self.m_ineq:
-            lam[self._ineq_idx_t] = yd * self.scale_cons_ineq
+            lam[self._ineq_idx_t] = plain(yd * self.scale_cons_ineq)
         return lam
 
     def get_starting_point(self):

@@ -6,8 +6,11 @@ whose Jacobian is dense (m x n), kept as one (m, n) tensor on the solver's
 device. The scaling reductions run on the device and reach the host in one
 transfer; the eq/ineq row split is an ``index_select`` on the device; a
 problem whose constraints are all linear (``jac_constant``) has its scaled
-Jacobian evaluated once and cached. The n-axis sharding of ``hiop_tpu``'s
-mesh branch is not ported (ROADMAP.md section 1, item 15).
+Jacobian evaluated once and cached. On a mesh
+(:func:`hiop_tpu_torch.parallel.mesh.shard_formulation`) the Jacobian is
+column-sharded, the reference's MPI-distributed hiopMatrixDenseRowMajor:
+J @ x and J M^{-1} J^T contract over n and end in an all-reduce
+(hiopMatrixDenseRowMajor.cpp:487,699).
 """
 
 from __future__ import annotations
@@ -17,12 +20,14 @@ from typing import Tuple
 import torch
 
 from hiop_tpu_torch.formulation.base import NlpFormulation
+from hiop_tpu_torch.parallel.mesh import shard_n
 
 
 class NlpDenseConstraints(NlpFormulation):
     def maybe_setup_scaling(self, x0) -> None:
         if self._scaling_done:
             return
+        x0 = self._for_problem(x0)
         grad0 = self._dev(self.problem.eval_grad_f(x0)).reshape(self.n)
         jac0 = self._dev(self.problem.eval_jac_cons(x0)).reshape(self.m, self.n)
         norms = [grad0.abs().max().reshape(1)]
@@ -39,8 +44,13 @@ class NlpDenseConstraints(NlpFormulation):
                 return cached
         self.runstats.n_eval_jac += 1
         with self.runstats.tm_eval_jac:
-            J = self._dev(self.problem.eval_jac_cons(x)).reshape(self.m, self.n)
+            J = self._dev(self.problem.eval_jac_cons(self._for_problem(x))).reshape(self.m, self.n)
         J = J * self._scale_cons_t[:, None]
+        mesh = getattr(self, "_mesh", None)
+        if mesh is not None:
+            # m replicated rows x n sharded columns, rather than leaving the
+            # layout to propagation from x
+            J = shard_n(mesh, J, self._mesh_axis)
         out = (J.index_select(0, self._eq_idx_t), J.index_select(0, self._ineq_idx_t))
         if getattr(self.problem, "jac_constant", False):
             self._jac_cache = out
@@ -53,7 +63,8 @@ class NlpDenseConstraints(NlpFormulation):
         self.runstats.n_eval_hess += 1
         lam = self._lam_user_order(yc, yd)
         with self.runstats.tm_eval_hess:
-            H = self.problem.eval_hess_lagr(x, obj_factor * self.scale_obj, lam)
+            H = self.problem.eval_hess_lagr(self._for_problem(x), obj_factor * self.scale_obj,
+                                            self._for_problem(lam))
         # row-major for the factorization kernels (torch.func.hessian may
         # return the transposed layout)
         return self._dev(H).reshape(self.n, self.n).contiguous()

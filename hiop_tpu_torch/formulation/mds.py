@@ -5,7 +5,9 @@ Counterpart of ``hiop_tpu/formulation/mds.py``. Variables are ordered
 dense block; the Hessian is block-diagonal with a *diagonal* sparse block,
 the structure the MDS KKT exploits (reference hiopKKTLinSysMDS.cpp:172-276).
 The triplet structure is static: its index maps are built once on the host
-and kept on the solver's device."""
+and kept on the solver's device. On a mesh
+(:func:`hiop_tpu_torch.parallel.mesh.shard_formulation`) the dense Jacobian
+materialization is column-sharded, as the dense formulation's."""
 
 from __future__ import annotations
 
@@ -15,6 +17,8 @@ import numpy as np
 import torch
 
 from hiop_tpu_torch.formulation.base import NlpFormulation, to_numpy
+from hiop_tpu_torch.parallel.mesh import shard_n
+from hiop_tpu_torch.utils.dtensor import plain
 
 
 class NlpMDS(NlpFormulation):
@@ -75,6 +79,11 @@ class NlpMDS(NlpFormulation):
             if cached is not None:
                 return cached
         (veq, vin), De, Di = self.eval_jac_blocks_split(x)
+        mesh = getattr(self, "_mesh", None)
+        if mesh is not None:
+            # assembled from each rank's replica of the blocks, then
+            # column-sharded as the dense formulation's Jacobian
+            veq, vin, De, Di = (plain(a) for a in (veq, vin, De, Di))
         Jc = torch.zeros((self.m_eq, self.n), dtype=x.dtype, device=x.device)
         Jd = torch.zeros((self.m_ineq, self.n), dtype=x.dtype, device=x.device)
         if self.m_eq:
@@ -83,6 +92,8 @@ class NlpMDS(NlpFormulation):
         if self.m_ineq:
             Jd.index_put_(self._jac_in_rc_t, vin, accumulate=True)
             Jd[:, self.n_sparse:] = Di
+        if mesh is not None:
+            Jc, Jd = shard_n(mesh, Jc, self._mesh_axis), shard_n(mesh, Jd, self._mesh_axis)
         if getattr(self.problem, "jac_constant", False):
             self._jac_cache = (Jc, Jd)
         return Jc, Jd

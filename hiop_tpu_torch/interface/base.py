@@ -58,6 +58,9 @@ class NlpProblem:
     #: host round trip: ``jit_mode=iteration/solve`` then run the fused
     #: modes (hiop_tpu's flag of the same name: evaluations it can trace)
     jittable: bool = False
+    #: False when the evaluations take plain tensors only: a mesh-sharded
+    #: formulation then hands them its rank's replica of ``x``
+    takes_dtensor: bool = True
 
     # -- sizes & data -------------------------------------------------------
     def get_prob_sizes(self) -> Tuple[int, int]:
@@ -182,13 +185,16 @@ class AutoDiffNlpProblem(NlpProblem):
     the Lagrangian ``obj_factor * f + lam . c`` (``hessian`` is
     ``jacfwd(jacrev(.))``). Every evaluation runs in torch on the device
     of ``x``, the solver's device; ``f`` and ``c`` must keep any constant
-    tensors they close over on that device.
+    tensors they close over on that device. The ``torch.func`` transforms
+    take no DTensor (``takes_dtensor = False``): on a mesh the formulation
+    hands every evaluation this rank's replica of ``x``.
 
     >>> p = AutoDiffNlpProblem(f=lambda x: (x**2).sum(), c=lambda x: x[:1],
     ...                        xl=..., xu=..., cl=..., cu=..., x0=...)
     """
 
     jittable = True
+    takes_dtensor = False
 
     def __init__(
         self,

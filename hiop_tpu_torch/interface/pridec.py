@@ -98,6 +98,11 @@ class PriDecProblem:
     # once (torch.func.vmap over the scenarios, or one batched solve).
     # Returns (rvals (k,), grads (k, n)).
     batched = False
+    #: True when ``eval_rterms_batched`` also takes ``idxs`` and ``x`` as
+    #: tensors and evaluates on the device of ``x``: the solver may then
+    #: split the scenario axis over several devices (``shard_scenarios``).
+    #: hiop_tpu splits a problem whose batched evaluation it can trace.
+    splits_over_devices = False
 
     def eval_rterms_batched(self, idxs: np.ndarray, x: np.ndarray):
         raise NotImplementedError

@@ -48,6 +48,7 @@ from hiop_tpu_torch.kkt.newton_dense import _cap_at_dual_reg, _eye, _full, _lu_w
 from hiop_tpu_torch.linalg import ldl_blocked as _ldl
 from hiop_tpu_torch.linalg.cholesky import cholesky as _chol
 from hiop_tpu_torch.linalg.vector_ops import scatter_add_
+from hiop_tpu_torch.utils.dtensor import plain
 
 
 class MdsFactors(NamedTuple):
@@ -109,6 +110,37 @@ def schur_js_triplets(js_vals, ks_inv, pairs, m: int):
     prod = js_vals[pa] * js_vals[pb] * ks_inv[pvar]
     flat = torch.zeros((m * m,), dtype=js_vals.dtype, device=js_vals.device)
     return scatter_add_(flat, prow * m + pcol, prod).reshape(m, m)
+
+
+def schur_js_triplets_sharded(js_vals, ks_inv, pairs, m: int, mesh):
+    """Mesh-sharded triplet Schur assembly: the pair list is partitioned
+    over the mesh's ranks (padded with zero-weight pairs), each rank
+    scatter-adds its partial (m, m) sum with the deterministic scatter-add,
+    and one all-reduce (a ``Partial`` DTensor made ``Replicate``) gives the
+    replicated Schur matrix (``hiop_tpu``'s shard_map + psum; SURVEY.md
+    §2.9: partial local products and an allreduce, here over same-column
+    nonzero pairs). The replicated S then feeds the replicated Cholesky,
+    the reference's replicated small solve. ``js_vals`` and ``ks_inv`` are
+    the same on every rank (plain tensors or replicated DTensors)."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+
+    vals, kinv = plain(js_vals), plain(ks_inv)
+    n_dev, r = mesh.size(), mesh.get_local_rank()
+    n_pairs = pairs[0].numel()
+    per = -(-n_pairs // n_dev)
+    lo, hi = min(r * per, n_pairs), min((r + 1) * per, n_pairs)
+    # this rank's block, padded to ``per`` pairs that index entry 0 and
+    # write through a zero weight
+    pad = per - (hi - lo)
+    pa, pb, pvar, prow, pcol = (
+        torch.cat([a[lo:hi], a.new_zeros(pad)]) for a in pairs
+    )
+    w = (torch.arange(per, device=vals.device) < hi - lo).to(vals.dtype)
+    prod = vals[pa] * vals[pb] * kinv[pvar] * w
+    part = scatter_add_(torch.zeros((m * m,), dtype=vals.dtype, device=vals.device),
+                        prow * m + pcol, prod)
+    S = DTensor.from_local(part, mesh, [Partial()], run_check=False).redistribute(mesh, [Replicate()])
+    return S.reshape(m, m)
 
 
 def factorize(

@@ -39,6 +39,7 @@ import torch
 from hiop_tpu_torch.formulation.base import to_numpy
 from hiop_tpu_torch.linalg import ldl_blocked as _ldl
 from hiop_tpu_torch.linalg.cholesky import cholesky as _chol
+from hiop_tpu_torch.utils.dtensor import plain, replicate_like
 
 
 def _pos_inv(v):
@@ -70,10 +71,15 @@ def _cap_at_dual_reg(thresh, delta_cc):
 
 
 def _cho_solve(L, b):
-    """cho_solve((L, True), b) for b of shape (k,) or (k, r)."""
+    """cho_solve((L, True), b) for b of shape (k,) or (k, r). On a mesh (a
+    replicated DTensor L: DTensor has no rule for ``cholesky_solve`` in
+    every torch version) it runs on this rank's replica and returns a
+    ``Replicate`` DTensor."""
+    wrap = replicate_like(L, b)
+    L, b = plain(L), plain(b)
     if b.dim() == 1:
-        return torch.cholesky_solve(b[:, None], L)[:, 0]
-    return torch.cholesky_solve(b, L)
+        return wrap(torch.cholesky_solve(b[:, None], L)[:, 0])
+    return wrap(torch.cholesky_solve(b, L))
 
 
 class QuickFactors(NamedTuple):

@@ -37,6 +37,7 @@ from __future__ import annotations
 import torch
 
 from hiop_tpu_torch.linalg import kernels as _k
+from hiop_tpu_torch.utils.dtensor import is_dtensor, local as mesh_local
 
 NB = _k.NB
 OB = _k.OB
@@ -45,7 +46,12 @@ LEAF = _k.LEAF
 
 def cholesky(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factor of the symmetric matrix A (lower triangle read).
-    Under ``torch.func.vmap``, one batched launch over the lanes."""
+    Under ``torch.func.vmap``, one batched launch over the lanes. A
+    DTensor (a mesh-sharded solve's replicated system) is factored on each
+    rank's own replica and comes back ``Replicate``."""
+    if is_dtensor(A):
+        A, wrap = mesh_local(A)
+        return wrap(_Cholesky.apply(A))
     return _Cholesky.apply(A)
 
 

@@ -47,6 +47,7 @@ from typing import NamedTuple
 import torch
 
 from hiop_tpu_torch.linalg import kernels as _k
+from hiop_tpu_torch.utils.dtensor import is_dtensor, local as mesh_local
 
 _BLOCK = 128  # padding granularity of hiop_tpu's _ldl_factor_impl
 NB = _k.NB
@@ -83,7 +84,13 @@ def _pad_sym(M, n_p):
 
 def ldl_nopiv(A: torch.Tensor):
     """(L, d) of the symmetric matrix A (lower triangle read), any size.
-    Under ``torch.func.vmap``, one batched launch over the lanes."""
+    Under ``torch.func.vmap``, one batched launch over the lanes. A
+    DTensor (a mesh-sharded solve's replicated system) is factored on each
+    rank's own replica and comes back ``Replicate``."""
+    if is_dtensor(A):
+        A, wrap = mesh_local(A)
+        L, d = _LdlNopiv.apply(A)
+        return wrap(L), wrap(d)
     return _LdlNopiv.apply(A)
 
 

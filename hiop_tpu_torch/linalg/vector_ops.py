@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from hiop_tpu_torch.utils.dtensor import is_dtensor, plain, replicate_like
+
 
 def min_init(v, init: float):
     """min(min(v), init), and init for an empty v (jnp.min(..., initial=))."""
@@ -132,5 +134,10 @@ def scatter_add_(out, idx, vals):
     """out[idx] += vals, duplicates in idx summed in a fixed order, so that
     two runs give the same bits: ``index_put_(accumulate=True)`` is
     sort-based on CUDA, where ``index_add_`` adds with atomics. In place;
-    returns ``out``."""
+    returns ``out``. On a mesh (any argument a DTensor: DTensor has no rule
+    for ``index_put_`` in every torch version) it runs on this rank's
+    replicas and returns a ``Replicate`` DTensor: use the return value."""
+    if is_dtensor(out) or is_dtensor(vals) or is_dtensor(idx):
+        wrap = replicate_like(out, vals, idx)
+        return wrap(plain(out).index_put_((plain(idx),), plain(vals), accumulate=True))
     return out.index_put_((idx,), vals, accumulate=True)

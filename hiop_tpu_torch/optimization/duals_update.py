@@ -9,8 +9,9 @@ hiopDualsUpdater, hiopDualsUpdater.hpp:68,116). The LSQ update solves
 (doc hiopDualsUpdater.hpp:199-231) with a regularized Cholesky of the small
 m x m matrix. That factorization is a library call in both packages
 (XLA's potrf there, ``torch.linalg.cholesky_ex`` here); it is not one of
-the hand-written kernels. For a Jacobian too large to form J J^T,
-:func:`lsq_duals_matfree` solves the same normal equations by CG
+the hand-written kernels. On a mesh the m x m system is replicated and is
+factored and solved on each rank's replica. For a Jacobian too large to
+form J J^T, :func:`lsq_duals_matfree` solves the same normal equations by CG
 (:func:`hiop_tpu_torch.linalg.krylov.pcg`) with Jacobian products only,
 dense or :class:`~hiop_tpu_torch.linalg.sparse.TripletMatrix`.
 """
@@ -20,6 +21,7 @@ from __future__ import annotations
 import torch
 
 from hiop_tpu_torch.linalg.sparse import TripletMatrix
+from hiop_tpu_torch.utils.dtensor import plain, replicate_like
 
 
 def _cholesky_nan_on_failure(M):
@@ -48,8 +50,12 @@ def lsq_duals(Jc, Jd, grad_f, zl, zu, vl, vu):
     eps = torch.finfo(M.dtype).eps
     scale = torch.clamp(M.abs().max(), min=1.0)
     eye = torch.eye(m, dtype=M.dtype, device=M.device)
-    L = _cholesky_nan_on_failure(M + (eps ** 0.5) * scale * eye)
-    y = torch.cholesky_solve(rhs[:, None], L)[:, 0]
+    # a library factorization DTensor has no rule for in every torch
+    # version: on a mesh it runs on this rank's replica
+    M_reg = M + (eps ** 0.5) * scale * eye
+    wrap = replicate_like(M_reg, rhs)
+    L = _cholesky_nan_on_failure(plain(M_reg))
+    y = wrap(torch.cholesky_solve(plain(rhs)[:, None], L)[:, 0])
     return y[:mc], y[mc:]
 
 

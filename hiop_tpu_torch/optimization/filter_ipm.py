@@ -42,9 +42,13 @@ With ``jit_mode=iteration`` or ``jit_mode=solve`` on a jittable problem
 the solvers run the fused modes of
 :mod:`hiop_tpu_torch.optimization.fused_newton` (``_run_dispatch``), and
 a fused step that needs the general loop's machinery hands its iterate
-to :meth:`FilterIPMBase._run_loop`. Options and paths that need modules
-not ported yet raise :class:`NotImplementedError` naming the ROADMAP.md
-item that will port them.
+to :meth:`FilterIPMBase._run_loop`. A formulation sharded over a mesh
+(:func:`hiop_tpu_torch.parallel.mesh.shard_formulation`) runs the same
+code on DTensor values inside :func:`~hiop_tpu_torch.parallel.mesh.solve_scope`;
+the Newton strategies factor their small systems on each rank's replica,
+and the result is gathered and trimmed of the mesh's padding. Options and
+paths that need modules not ported yet raise :class:`NotImplementedError`
+naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -82,6 +86,8 @@ from hiop_tpu_torch.optimization.residual import Residual
 from hiop_tpu_torch.status import SolveStatus
 from hiop_tpu_torch.utils import checkpoint as ckpt
 from hiop_tpu_torch.utils import kkt_io
+from hiop_tpu_torch.parallel.mesh import shard_n, solve_scope, to_host
+from hiop_tpu_torch.utils.dtensor import plain, replicate_like
 from hiop_tpu_torch.utils.logger import Verbosity
 
 
@@ -115,15 +121,13 @@ def _not_ported(what: str, item: str):
     )
 
 
-#: the ROADMAP.md item that holds the formulation classes beyond the dense,
-#: MDS and sparse ones (batch_solve's parametric problems, PriDec's)
-_OTHER_FORMULATIONS = "item 14: the formulation classes of batching and decomposition"
-
-#: options whose non-default values need code the port does not have yet
-_UNPORTED_OPTIONS = (
-    ("checkpoint_format", ("orbax",), "checkpoint_format=orbax",
-     "item 15: sharded checkpoints through torch.distributed.checkpoint"),
-)
+def _unknown_formulation(what: str, nlp):
+    """A formulation outside hiop_tpu's three classes, which are all ported
+    (batch_solve's and PriDec's problems build on them)."""
+    return NotImplementedError(
+        f"{what} over {type(nlp).__name__}: the formulation classes are hiop_tpu's "
+        "three, NlpDenseConstraints, NlpMDS and NlpSparse (ROADMAP.md section 1)"
+    )
 
 
 # =====================================================================
@@ -138,6 +142,7 @@ class _LowRankStrategy:
         self.nlp = nlp
         self.bfgs = blr.init_state(
             nlp.n, o.integer("secant_memory_len"), o.num("sigma0"), device=nlp.device,
+            mesh=getattr(nlp, "_mesh", None), axis_name=getattr(nlp, "_mesh_axis", "n"),
         )
         self.sigma_strategy = o.str_("sigma_update_strategy")
         self.sigma0 = o.num("sigma0")
@@ -381,6 +386,11 @@ class _NewtonDenseStrategy:
             self._H = self.nlp.eval_hess(it.x, 1.0, it.yc, it.yd)
             self._Dx, self._Dd = res_mod.barrier_diagonals(it, b)
             self._Jc, self._Jd = Jc, Jd
+            if getattr(self.nlp, "_mesh", None) is not None:
+                # the dense KKT is factored on each rank's replica, as the
+                # replicated small solves of the reference
+                self._H, self._Dx, self._Dd, self._Jc, self._Jd = (
+                    plain(a) for a in (self._H, self._Dx, self._Dd, self._Jc, self._Jd))
         self._itb = (it, b)
         self.perturb.set_mu(float(mu))
         self.perturb.compute_initial_deltas()
@@ -432,6 +442,10 @@ class _NewtonDenseStrategy:
             return kkt_nd.factorize_quick(H, Dx, Dd, Jc, Jd, *deltas)
 
     def _solve_factors(self, f, rx_t, rd_t, ryc, ryd):
+        # on a mesh the KKT is solved on this rank's replica, as it is
+        # factored there, and the direction goes on replicated
+        wrap = replicate_like(rx_t, rd_t, ryc, ryd)
+        rx_t, rd_t, ryc, ryd = (plain(a) for a in (rx_t, rd_t, ryc, ryd))
         mixed = self.fact_dtype != torch.float64
         if mixed:
             rx_t, rd_t, ryc, ryd = (self._cast(a) for a in (rx_t, rd_t, ryc, ryd))
@@ -458,7 +472,7 @@ class _NewtonDenseStrategy:
             out = kkt_nd.solve_quick(f, rx_t, rd_t, ryc, ryd)
         if mixed:
             out = tuple(a.to(torch.float64) for a in out)
-        return out
+        return tuple(wrap(a) for a in out)
 
     def _factorization_acceptable(self, f):
         """Returns (acceptable, singular)."""
@@ -1279,6 +1293,10 @@ class _MdsStrategy:
                 self._data["js_vals"] = (
                     torch.cat(parts) if parts else Jc.new_zeros((0,))
                 )
+            if getattr(self.nlp, "_mesh", None) is not None:
+                # the KKT factorization runs on each rank's replica, as the
+                # replicated small solves of the reference
+                self._data = {k: plain(v) for k, v in self._data.items()}
         self.perturb.set_mu(float(mu))
         self.perturb.compute_initial_deltas()
         self._mu = float(mu)
@@ -1323,6 +1341,10 @@ class _MdsStrategy:
 
     def _solve(self, f, rx_t, rd_t, ryc, ryd):
         ns = self.ns
+        # on a mesh the KKT is solved on this rank's replica, as it is
+        # factored there, and the direction goes on replicated
+        wrap = replicate_like(rx_t, rd_t, ryc, ryd)
+        rx_t, rd_t, ryc, ryd = (plain(a) for a in (rx_t, rd_t, ryc, ryd))
         mixed = self.fact_dtype != torch.float64
         if mixed:
             rx_t, rd_t, ryc, ryd = (self._cast(a) for a in (rx_t, rd_t, ryc, ryd))
@@ -1336,7 +1358,7 @@ class _MdsStrategy:
         out = torch.cat([dxs, dxd]), dd, dyc, dyd
         if mixed:
             out = tuple(a.to(torch.float64) for a in out)
-        return out
+        return tuple(wrap(a) for a in out)
 
     def _mds_matvec(self, v):
         """The f64 compressed XDYcYd operator at the current deltas."""
@@ -1678,12 +1700,10 @@ class FilterIPMBase:
     # ------------------------------------------------------------------ run
     def run(self) -> SolverResult:
         o = self.opts
-        for name, bad, what, item in _UNPORTED_OPTIONS:
-            if o.str_(name) in bad:
-                raise _not_ported(what, item)
         if o.str_("profile_dir"):
             raise _not_ported("profile_dir", "item 16: tracing surface")
-        return self._run_dispatch()
+        with solve_scope(self.nlp):
+            return self._run_dispatch()
 
     def _run_general(self) -> SolverResult:
         nlp = self.nlp
@@ -2154,7 +2174,7 @@ class FilterIPMBase:
         self.log.printf(Verbosity.SCALARS, "%s", self.nlp.runstats.get_summary())
         return SolverResult(
             status=self.solver_status,
-            x=to_numpy(it_curr.x),
+            x=self._result_x(it_curr.x),
             obj=obj,
             iterations=self.iter_num,
             err_nlp=err_nlp,
@@ -2162,6 +2182,13 @@ class FilterIPMBase:
         )
 
     # -------------------------------------------------------------- helpers
+    def _result_x(self, x) -> np.ndarray:
+        """The solution on the host, trimmed of a mesh's padding
+        (PaddedDenseProblem)."""
+        x_host = to_host(x)
+        n_orig = getattr(self.nlp.problem, "_hiop_pad_n_orig", None)
+        return x_host if n_orig is None else x_host[:n_orig]
+
     def _evaluate_at(self, it: Iterate, b: Bounds, mu):
         """f, c, d, grad f, Jc, Jd, the residual and its norms at an iterate
         the loop jumps to (a restored checkpoint, a restoration's point)."""
@@ -2344,15 +2371,23 @@ class FilterIPMBase:
         state = ckpt.load_state(path)
         ckpt.validate(state, self.nlp.n, self.nlp.m_eq, self.nlp.m_ineq)
         dev = self.nlp._dev
-        it_curr = Iterate(*(dev(state[f"it_{n}"]) for n in Iterate._fields))
+        mesh = getattr(self.nlp, "_mesh", None)
+        if mesh is not None:
+            # the n-sized leaves go back to their shards
+            def dev_n(a):
+                return shard_n(mesh, dev(a), self.nlp._mesh_axis)
+        else:
+            dev_n = dev
+        n_sized = ("x", "sxl", "sxu", "zl", "zu")
+        it_curr = Iterate(*((dev_n if n in n_sized else dev)(state[f"it_{n}"]) for n in Iterate._fields))
         self.iter_num = int(state["iter_num"])
         self.theta_max = float(state["theta_max"])
         self.theta_min = float(state["theta_min"])
         self.filter._entries = list(state.get("filter_entries", []))
         if isinstance(strategy, _LowRankStrategy) and "bfgs_S" in state:
             strategy.bfgs = blr.BfgsState(
-                S=dev(state["bfgs_S"]),
-                Y=dev(state["bfgs_Y"]),
+                S=dev_n(state["bfgs_S"]),
+                Y=dev_n(state["bfgs_Y"]),
                 active=dev(state["bfgs_active"]),
                 sigma=dev(state["bfgs_sigma"]),
             )
@@ -2512,8 +2547,6 @@ class FilterIPMBase:
             neg_curv_fact=o.num("neg_curv_test_fact"),
         )
         if self._fused_mode == "qn":
-            if getattr(nlp, "_mesh", None) is not None:
-                raise _not_ported("a mesh-sharded fused quasi-Newton state", "item 15: distribution")
             consts.update(
                 sigma_update_strategy=o.str_("sigma_update_strategy"),
                 sigma0=o.num("sigma0"),
@@ -2522,6 +2555,7 @@ class FilterIPMBase:
             bfgs0 = blr.init_state(
                 n, o.integer("secant_memory_len"), o.num("sigma0"),
                 dtype=x0.dtype, device=x0.device,
+                mesh=getattr(nlp, "_mesh", None), axis_name=getattr(nlp, "_mesh_axis", "n"),
             )
             state = fn.FusedQNState(
                 it=it_curr, f=f, c=c, d=d_eval, grad=grad_f, Jc=Jc, Jd=Jd, bfgs=bfgs0,
@@ -2620,7 +2654,7 @@ class FilterIPMBase:
             self.solver_status.name, obj, self.iter_num, what,
         )
         return SolverResult(
-            status=self.solver_status, x=to_numpy(state.it.x), obj=obj,
+            status=self.solver_status, x=self._result_x(state.it.x), obj=obj,
             iterations=self.iter_num, err_nlp=err_nlp, mu=mu,
         )
 
@@ -2790,4 +2824,4 @@ class FilterIPMNewton(FilterIPMBase):
                 return _SparseDirectStrategy(nlp, self.log, nlp.runstats)
         if sparse or isinstance(nlp, NlpDenseConstraints):
             return _NewtonDenseStrategy(nlp, self.log, nlp.runstats)
-        raise _not_ported(f"FilterIPMNewton over {type(nlp).__name__}", _OTHER_FORMULATIONS)
+        raise _unknown_formulation("FilterIPMNewton", nlp)

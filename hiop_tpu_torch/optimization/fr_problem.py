@@ -414,8 +414,7 @@ def apply_feasibility_restoration(solver, it_curr, mu, norms):
     elif isinstance(base, NlpDenseConstraints):
         fr_cls, form_cls = FeasibilityRestorationProblem, NlpDenseConstraints
     else:
-        raise fi._not_ported(f"feasibility restoration over {type(base).__name__}",
-                             fi._OTHER_FORMULATIONS)
+        raise fi._unknown_formulation("feasibility restoration", base)
     fr_prob = fr_cls(base, it_curr.x, mu, nrm_feas)
     fr_prob.orig_filter = solver.filter
 

@@ -33,8 +33,9 @@ the :class:`FusedScalars` bundle, ``jit_mode=solve`` folds its status into
 the first of them. Nothing is captured in a CUDA graph here (ROADMAP.md
 item 13b). A parametric problem (batch_solve's scenario parameter) has no
 single-problem fused step, as in ``hiop_tpu``: its family runs through
-:func:`hiop_tpu_torch.optimization.batch_solve.solve_batched`. A
-mesh-sharded QN state raises, naming ROADMAP item 15.
+:func:`hiop_tpu_torch.optimization.batch_solve.solve_batched`. On a mesh
+the fused QN state is n-sharded like the general loop's
+(:mod:`hiop_tpu_torch.parallel.mesh`).
 """
 
 from __future__ import annotations
@@ -189,12 +190,6 @@ def read_scalars(s: FusedScalars) -> FusedScalars:
     reads = _HostReads()
     vals = reads.get(*s[:-2])   # every field but folded and host_reads
     return FusedScalars(*vals, folded=s.folded, host_reads=s.host_reads + reads.n)
-
-
-def _not_ported(what: str, item: str):
-    from hiop_tpu_torch.optimization.filter_ipm import _not_ported as np_
-
-    return np_(what, item)
 
 
 def build_fused_step(nlp, consts, mode: str = "newton"):
@@ -379,11 +374,6 @@ def _build_fused_step_uncached(nlp, consts, mode: str = "newton"):
             "a parametric problem (batch_solve's scenario parameter) has no "
             "single-problem fused solve; solve its family with "
             "hiop_tpu_torch.optimization.batch_solve.solve_batched"
-        )
-    if mode == "qn" and getattr(nlp, "_mesh", None) is not None:
-        raise _not_ported(
-            "a mesh-sharded fused quasi-Newton state",
-            "item 15: distribution",
         )
     from hiop_tpu_torch.formulation.mds import NlpMDS
 

@@ -19,9 +19,11 @@ rows/columns padded with identity, so a partly filled memory behaves
 exactly as there. The secant update (the skip test, the five sigma
 strategies and the sigma clip) decides with ``torch.where`` on the device
 and never synchronizes; the 2l x 2l solves go through
-:func:`hiop_tpu_torch.linalg.small_solve.solve_small`. ``hiop_tpu``'s
-``mesh`` argument (n-axis sharding) is not ported (ROADMAP.md section 1,
-item 15).
+:func:`hiop_tpu_torch.linalg.small_solve.solve_small`. On a mesh S and Y
+are n-sharded DTensors: the l x l Gram matrices contract over n and end in
+an all-reduce, the reference's MPI_Allreduce of l x l buffers
+(hiopHessianLowRank.cpp:459, 590-591), and the 2l x 2l V solve runs
+replicated, as the reference's does.
 """
 
 from __future__ import annotations
@@ -41,15 +43,22 @@ class BfgsState(NamedTuple):
 
 
 def init_state(n: int, l_max: int, sigma0: float = 1.0, dtype=torch.float64,
-               device=None) -> BfgsState:
-    """Zero BFGS memory on ``device``."""
+               device=None, mesh=None, axis_name: str = "n") -> BfgsState:
+    """Zero BFGS memory on ``device``. With ``mesh`` given, S and Y are
+    n-sharded from the start (the reference keeps them MPI
+    column-distributed, hiopHessianLowRank.hpp:60), and the mask and sigma
+    are replicated."""
     ll = max(l_max, 1)
-    return BfgsState(
-        S=torch.zeros((ll, n), dtype=dtype, device=device),
-        Y=torch.zeros((ll, n), dtype=dtype, device=device),
-        active=torch.zeros((ll,), dtype=dtype, device=device),
-        sigma=torch.tensor(sigma0, dtype=dtype, device=device),
-    )
+    S = torch.zeros((ll, n), dtype=dtype, device=device)
+    Y = torch.zeros((ll, n), dtype=dtype, device=device)
+    active = torch.zeros((ll,), dtype=dtype, device=device)
+    sigma = torch.tensor(sigma0, dtype=dtype, device=device)
+    if mesh is not None:
+        from hiop_tpu_torch.parallel.mesh import replicate, shard_n
+
+        S, Y = shard_n(mesh, S, axis_name), shard_n(mesh, Y, axis_name)
+        active, sigma = replicate(mesh, active), replicate(mesh, sigma)
+    return BfgsState(S=S, Y=Y, active=active, sigma=sigma)
 
 
 _SIGMA_STRATEGIES = ("sigma0", "sty", "sty_inv", "snrm_ynrm", "sty_srnm_ynrm")

@@ -14,10 +14,10 @@ to MPI workers (cpp:908-999), a problem that implements
 ``eval_rterms_batched`` has all its scenarios evaluated by one batched call
 (one lane-batched solve on the device, :mod:`hiop_tpu_torch.optimization.batch_solve`);
 otherwise a host loop deals the scenarios to a thread pool, or, with
-``accum_local``, evaluates a static partition and reduces
-(:mod:`hiop_tpu_torch.parallel.scenario_sched`). Sharding the scenario axis
-over several devices, and the reduce across processes, are ROADMAP.md
-item 15."""
+``accum_local`` or several processes, evaluates this rank's static
+partition and all-reduces (:mod:`hiop_tpu_torch.parallel.scenario_sched`).
+With several CUDA devices in the process, the batched scenario axis is
+split over them (:meth:`PriDecSolver._eval_recourse_sharded`)."""
 
 from __future__ import annotations
 
@@ -135,7 +135,11 @@ class PriDecSolver:
         problem: PriDecProblem,
         options: Optional[PriDecOptions] = None,
         xc_index: Optional[np.ndarray] = None,
+        scenario_devices=None,
     ):
+        """``scenario_devices``: the devices the batched scenario axis is
+        split over (default: every CUDA device the process sees, the
+        counterpart of ``jax.devices()``)."""
         self.prob = problem
         self.opts = options if options is not None else PriDecOptions()
         self.log = Logger(self.opts.integer("verbosity_level"))
@@ -145,6 +149,7 @@ class PriDecSolver:
             np.arange(self.n) if xc_index is None else np.asarray(xc_index, dtype=np.int64)
         )
         self.nc = int(self.xc_idx.size)
+        self.scenario_devices = scenario_devices
         self.alpha_ratio = 1.0
         self.iter_ = 0
         self.obj_ = float("nan")
@@ -182,14 +187,22 @@ class PriDecSolver:
         if getattr(self.prob, "batched", False):
             import torch
 
+            devices = self.scenario_devices
+            if devices is None:
+                devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
             shard_opt = self.opts.str_("shard_scenarios")
-            n_dev = torch.cuda.device_count()
-            if shard_opt != "no" and n_dev > 1 and self.S >= n_dev:
-                msg = ("scenario sharding over several devices is not ported to "
-                       "hiop_tpu_torch yet (ROADMAP.md section 1, item 15: distribution)")
+            if shard_opt != "no" and len(devices) > 1 and self.S >= len(devices):
+                if getattr(self.prob, "splits_over_devices", False):
+                    return self._eval_recourse_sharded(x0, devices)
+                # the counterpart of hiop_tpu's untraceable eval_rterms_batched
+                # (numpy, nested solves): yes refuses, auto stays on one device
+                msg = (f"{type(self.prob).__name__}.eval_rterms_batched does not evaluate on the "
+                       "device of the x it is given (splits_over_devices is False)")
                 if shard_opt == "yes":
-                    raise NotImplementedError(msg)
-                self.log.printf(Verbosity.SCALARS, "%s; the batched path runs on one device", msg)
+                    raise ValueError(f"shard_scenarios=yes: {msg}")
+                if not getattr(self, "_split_off_logged", False):
+                    self._split_off_logged = True
+                    self.log.printf(Verbosity.SCALARS, "scenario split disabled: %s", msg)
             rvals, grads = self.prob.eval_rterms_batched(np.arange(self.S), x0)
             rvals = _host(rvals)
             grads = _host(grads)
@@ -215,6 +228,35 @@ class PriDecSolver:
         nw = self.opts.integer("num_local_workers")
         rsum, gsum, _n = ssched.dynamic_schedule(eval_one, range(self.S), nw)
         return rsum / self.S, gsum / self.S
+
+    def _eval_recourse_sharded(self, x0: np.ndarray, devices):
+        """The batched scenario axis split over ``devices``: each device
+        evaluates its S/n_dev slice (launched one after another, running
+        concurrently on their cards), the weighted (value, gradient) sums
+        meet on the first device. The scenario count is padded to a device
+        multiple with zero-weight repeats, as ``hiop_tpu`` pads its mesh
+        (the collective replacement of the reference's MPI_Isend/Irecv
+        result gathering, hiopAlgPrimalDecomp.cpp:73-131). Taken only for a
+        problem that declares ``splits_over_devices``: it evaluates on the
+        device of the ``x`` tensor it is given."""
+        import torch
+
+        nd = len(devices)
+        S_pad = ((self.S + nd - 1) // nd) * nd
+        idx = np.arange(S_pad) % self.S
+        w = (np.arange(S_pad) < self.S).astype(np.float64)
+        per = S_pad // nd
+        parts = []
+        for k, dev in enumerate(devices):
+            sl = slice(k * per, (k + 1) * per)
+            x_d = torch.as_tensor(np.asarray(x0, np.float64), device=dev)
+            w_d = torch.as_tensor(w[sl], device=dev)
+            rv, gr = self.prob.eval_rterms_batched(torch.as_tensor(idx[sl], device=dev), x_d)
+            parts.append((torch.sum(rv * w_d), torch.sum(w_d[:, None] * gr, dim=0)))
+        first = devices[0]
+        rs = sum(r.to(first) for r, _ in parts)
+        gs = sum(g.to(first) for _, g in parts)
+        return float(rs) / self.S, _host(gs) / self.S
 
     def run(self) -> PriDecResult:
         o = self.opts

@@ -15,8 +15,8 @@ reference's two distribution modes for recourse-term evaluation
   scenarios, accumulates value and subgradient locally, and one reduce
   combines them (cpp:1651-1652). Here the partition is by the
   ``torch.distributed`` rank when a process group is initialized; in one
-  process the combine is a no-op, and across processes it is not ported
-  yet (ROADMAP.md item 15).
+  process the combine is a no-op, across processes one ``all_reduce`` of
+  (rval, grad).
 
 The batched path (``eval_rterms_batched``) remains the preferred
 realization for homogeneous scenarios; these schedulers cover
@@ -127,7 +127,14 @@ def allreduce_across_processes(rval: float, grad: np.ndarray):
     _rank, nprocs = process_rank_and_count()
     if nprocs == 1:
         return rval, grad
-    raise NotImplementedError(
-        "the cross-process allreduce of PriDec's accum_local mode is not ported "
-        "to hiop_tpu_torch yet (ROADMAP.md section 1, item 15: distribution)"
+    import torch
+    import torch.distributed as dist
+
+    # NCCL reduces device tensors only; gloo takes host tensors
+    dev = torch.device("cuda", torch.cuda.current_device()) if dist.get_backend() == "nccl" else "cpu"
+    payload = torch.as_tensor(
+        np.concatenate([[rval], np.asarray(grad, dtype=np.float64)]), device=dev
     )
+    dist.all_reduce(payload)
+    total = payload.cpu().numpy()
+    return float(total[0]), total[1:]

@@ -12,10 +12,17 @@ solver hands this module host numpy arrays; it never sees a tensor.
 Trigger: every ``checkpoint_save_every_N_iter`` iterations when
 ``checkpoint_save=yes`` (checkpointing_stuff(), cpp:1152), or explicitly
 via the solver's ``save_state_to_file``/``save_checkpoint``
-(hiopAlgFilterIPM.hpp:399-421). ``checkpoint_format=orbax`` (a JAX
-library's sharded directory format) is not ported: its counterpart,
-``torch.distributed.checkpoint``, belongs to the distributed port
-(ROADMAP.md section 1, item 15).
+(hiopAlgFilterIPM.hpp:399-421).
+
+``checkpoint_format=orbax`` writes a directory, as ``hiop_tpu``'s orbax
+format does, through ``torch.distributed.checkpoint`` (DCP): the same keys,
+``format_version`` among them, and a zero-size array recorded as
+``__empty__{key}__{dtype}`` holding its shape, as ``hiop_tpu`` records it.
+In a multi-process solve every rank calls the save and the load (they are
+collective), and DCP writes each replicated entry once. The two packages'
+directory formats differ (orbax/tensorstore against DCP's), so neither
+reads the other's directory; the ``.npz`` file stays the cross-package
+format.
 """
 
 from __future__ import annotations
@@ -29,13 +36,13 @@ FORMAT_VERSION = 1
 
 
 def save_state(path: str, state: Dict[str, Any], fmt: str = "npz") -> None:
-    """Write a checkpoint as one portable ``.npz`` file (written to a
-    temporary name, then renamed into place)."""
+    """Write a checkpoint: one portable ``.npz`` file (written to a
+    temporary name, then renamed into place), or with ``fmt="orbax"`` a
+    DCP directory."""
+    if fmt == "orbax":
+        return _save_dcp(path, state)
     if fmt != "npz":
-        raise NotImplementedError(
-            f"checkpoint_format={fmt} is not ported to hiop_tpu_torch yet "
-            "(ROADMAP.md section 1, item 15: sharded checkpoints)"
-        )
+        raise ValueError(f"unknown checkpoint_format {fmt!r}")
     arrays = {}
     for k, v in state.items():
         if v is None:
@@ -53,12 +60,67 @@ def save_state(path: str, state: Dict[str, Any], fmt: str = "npz") -> None:
     os.replace(tmp, path)
 
 
+def _distributed() -> bool:
+    import warnings
+
+    import torch.distributed as dist
+
+    # DCP warns on every single-process call that it assumes one process
+    warnings.filterwarnings("ignore", message="torch.distributed is disabled")
+    return dist.is_available() and dist.is_initialized()
+
+
+def _save_dcp(path: str, state: Dict[str, Any]) -> None:
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    tree: Dict[str, Any] = {"format_version": torch.tensor(FORMAT_VERSION)}
+    for k, v in state.items():
+        if v is None:
+            continue
+        if k == "filter_entries":
+            v = np.asarray(v, dtype=np.float64).reshape(-1, 2)
+        a = np.asarray(v)
+        if a.ndim > 0 and a.size == 0:
+            # recorded as hiop_tpu records it for orbax: shape under a key
+            # that carries the dtype
+            tree[f"__empty__{k}__{a.dtype.str}"] = torch.tensor(a.shape, dtype=torch.int64)
+        else:
+            tree[k] = torch.as_tensor(a).clone()
+    dcp.save(tree, checkpoint_id=os.path.abspath(path), no_dist=not _distributed())
+
+
+def _load_dcp(path: str) -> Dict[str, Any]:
+    import torch
+    import torch.distributed.checkpoint as dcp
+
+    path = os.path.abspath(path)
+    meta = dcp.FileSystemReader(path).read_metadata().state_dict_metadata
+    tree = {k: torch.empty(tuple(m.size), dtype=m.properties.dtype) for k, m in meta.items()}
+    dcp.load(tree, checkpoint_id=path, no_dist=not _distributed())
+    if int(tree["format_version"]) != FORMAT_VERSION:
+        raise ValueError(f"checkpoint format {int(tree['format_version'])} != {FORMAT_VERSION}")
+    out: Dict[str, Any] = {}
+    for k, t in tree.items():
+        if k == "format_version":
+            continue
+        v = t.numpy()
+        if k.startswith("__empty__"):
+            name, _, dtypestr = k[len("__empty__"):].rpartition("__")
+            out[name] = np.zeros(tuple(int(s) for s in v), dtype=np.dtype(dtypestr))
+        elif k == "filter_entries":
+            out[k] = [tuple(row) for row in v]
+        elif v.ndim == 0:
+            out[k] = v.item()
+        else:
+            out[k] = v
+    return out
+
+
 def load_state(path: str) -> Dict[str, Any]:
+    """Read a checkpoint: a directory is the DCP format, a file the npz."""
     if os.path.isdir(path):
-        raise NotImplementedError(
-            f"{path} is a directory (an orbax checkpoint); only the npz format "
-            "is ported to hiop_tpu_torch (ROADMAP.md section 1, item 15)"
-        )
+        return _load_dcp(path)
     with np.load(path, allow_pickle=False) as z:
         if int(z["format_version"]) != FORMAT_VERSION:
             raise ValueError(

@@ -463,10 +463,12 @@ class PriDecOptions(OptionsBase):
            "options file for the master solve")
         rs("mem_space", "default", ["default", "host", "device", "um"], "memory space")
         rs("shard_scenarios", "auto", ["auto", "yes", "no"],
-           "shard the batched scenario axis over the device mesh via shard_map "
-           "with on-device psum aggregation (TPU-native replacement for the "
-           "reference's MPI master-worker dispatch); auto=when >1 device and "
-           "the problem provides a traceable eval_rterms_batched")
+           "split the batched scenario axis over the CUDA devices of the "
+           "process, the sums meeting on the first (the replacement for the "
+           "reference's MPI master-worker dispatch); auto and yes: when there "
+           "is more than one device and at least as many scenarios, for a "
+           "problem that sets splits_over_devices (yes refuses any other, auto "
+           "keeps it on one device)")
         rs("accum_local", "false", ["true", "false"],
            "accumulate recourse terms locally then reduce (vs dynamic dispatch)")
         ri("num_local_workers", 1, 1, 1024,

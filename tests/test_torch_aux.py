@@ -111,8 +111,17 @@ def test_checkpoint_roundtrip_file(tmp_path):
     ckpt.validate(loaded, 5, 1, 2)
     with pytest.raises(ValueError):
         ckpt.validate(loaded, 6, 1, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ckpt.save_state(str(tmp_path / "orbax"), state, fmt="orbax")
+    # checkpoint_format=orbax: a torch.distributed.checkpoint directory
+    # with the same keys, read back the same (an empty array included)
+    state["it_yd"] = np.zeros(0)
+    ckpt.save_state(str(tmp_path / "orbax"), state, fmt="orbax")
+    assert os.path.isdir(tmp_path / "orbax")
+    from_dir = ckpt.load_state(str(tmp_path / "orbax"))
+    assert set(from_dir) == set(state)
+    assert from_dir["iter_num"] == 7 and from_dir["mu"] == 0.1
+    assert np.array_equal(from_dir["it_x"], np.arange(5.0))
+    assert from_dir["it_yd"].shape == (0,) and from_dir["it_yd"].dtype == np.float64
+    assert from_dir["filter_entries"] == [(1.0, 2.0), (0.5, float("-inf"))]
 
 
 def _write_checkpoint(pkg, case, path):

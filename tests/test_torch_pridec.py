@@ -127,14 +127,18 @@ def test_dynamic_schedule_propagates_errors():
 
 
 def test_one_process_rank_and_reduce(monkeypatch):
-    """One process: rank 0 of 1 and a no-op reduce; with more processes
-    the reduce is item 15's."""
+    """One process: rank 0 of 1 and a no-op reduce; with more processes one
+    all_reduce of (rval, grad) (here a stand-in that doubles, as a second
+    rank with the same values would; the real two-process run is in
+    tests/test_torch_multiprocess.py)."""
     assert tss.process_rank_and_count() == (0, 1)
     g = np.arange(3.0)
     assert tss.allreduce_across_processes(2.0, g) == (2.0, g)
     monkeypatch.setattr(tss, "process_rank_and_count", lambda: (0, 2))
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tss.allreduce_across_processes(2.0, g)
+    monkeypatch.setattr(torch.distributed, "get_backend", lambda: "gloo")
+    monkeypatch.setattr(torch.distributed, "all_reduce", lambda t: t.mul_(2.0))
+    r, gsum = tss.allreduce_across_processes(2.0, g)
+    assert r == 4.0 and np.array_equal(gsum, 2.0 * g)
 
 
 # ---------------------------------------------------------------------------
@@ -202,13 +206,70 @@ def test_options_file_is_forwarded():
 
 
 def test_shard_scenarios_on_several_devices(monkeypatch):
-    """With more than one CUDA device, shard_scenarios=yes raises naming
-    item 15; auto keeps the batched path on one device."""
+    """With more than one CUDA device, shard_scenarios=yes and auto split
+    the batched scenario axis over them (here run on two CPU devices in
+    their place) and give the one-device result; no keeps one device."""
+    seen = []
+    real = hiop_tpu_torch.PriDecSolver._eval_recourse_sharded
+
+    def on_cpu(self, x0, devices):
+        seen.append([str(d) for d in devices])
+        return real(self, x0, [torch.device("cpu")] * len(devices))
+
+    one = _port_ex1(max_iter=2)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _port_ex1(shard_scenarios="yes", max_iter=2)
-    r = _port_ex1(shard_scenarios="auto", max_iter=2)
-    assert r.iterations == 2
+    monkeypatch.setattr(hiop_tpu_torch.PriDecSolver, "_eval_recourse_sharded", on_cpu)
+    for opt in ("yes", "auto"):
+        seen.clear()
+        r = _port_ex1(shard_scenarios=opt, max_iter=2)
+        assert seen and all(d == ["cuda:0", "cuda:1"] for d in seen)
+        assert r.iterations == one.iterations == 2
+        assert abs(r.obj - one.obj) <= 1e-10 * max(1.0, abs(one.obj))
+    seen.clear()
+    _port_ex1(shard_scenarios="no", max_iter=2)
+    assert not seen
+
+
+def _undeclared_problem(name):
+    """The two batched examples whose recourse is a batched solve on the
+    problem's own device (``splits_over_devices`` False), at small sizes."""
+    if name == "pridec_ex2":
+        return pridec_ex2.PriDecEx2Batched(10, 4, 3, compute_mode="cpu"), np.linspace(0.6, 1.4, 10)
+    p = acopf_pridec.AcopfPriDec(8, 2, compute_mode="cpu", verbosity=0)
+    return p, np.asarray(p.rec.core.start_dense()) * 0.9
+
+
+@pytest.mark.parametrize("name", ["pridec_ex2", "acopf_pridec"])
+def test_shard_scenarios_keeps_undeclared_problems_on_one_device(monkeypatch, name):
+    """Two devices in the process: a batched problem that does not declare
+    ``splits_over_devices`` stays on the unsplit batched path under auto
+    (every scenario in one call, x as given, the same sums), and yes
+    refuses it (hiop_tpu: its batched evaluation is not traceable)."""
+    prob, x = _undeclared_problem(name)
+    calls = []
+    real = type(prob).eval_rterms_batched
+
+    def spy(self, idxs, x_):
+        calls.append((np.asarray(idxs).tolist(), type(x_)))
+        out = real(self, idxs, x_)
+        calls[-1] += (out,)
+        return out
+
+    monkeypatch.setattr(type(prob), "eval_rterms_batched", spy)
+    cpu = torch.device("cpu")
+    o = hiop_tpu_torch.PriDecOptions()
+    o.update(verbosity_level=0, shard_scenarios="auto")
+    solver = hiop_tpu_torch.PriDecSolver(prob, o, scenario_devices=[cpu, cpu])
+    r, g = solver._eval_recourse(x)
+    S = prob.get_num_rterms()
+    assert [c[:2] for c in calls] == [(list(range(S)), np.ndarray)]
+    rv, gr = calls[0][2]
+    assert r == float(np.asarray(rv).sum()) / S
+    np.testing.assert_array_equal(g, np.asarray(gr).sum(axis=0) / S)
+    o.update(shard_scenarios="yes")
+    with pytest.raises(ValueError, match="splits_over_devices"):
+        hiop_tpu_torch.PriDecSolver(prob, o, scenario_devices=[cpu, cpu])._eval_recourse(x)
+    assert len(calls) == 1
 
 
 def test_pridec_ex2_batched_matches_host_recourse():

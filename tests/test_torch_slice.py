@@ -115,19 +115,17 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 #: (options, formulation attributes, what the message names): the fused
 #: state of a parametric problem (batch_solve's: its family runs through
-#: solve_batched, as in hiop_tpu) and a mesh-sharded fused quasi-Newton
-#: state, then two options
+#: solve_batched, as in hiop_tpu), then an option (a mesh-sharded fused
+#: state and checkpoint_format=orbax are ported: tests/test_torch_mesh.py,
+#: tests/test_torch_multiprocess.py)
 UNPORTED = [
     (dict(jit_mode="solve"), dict(parametric=True), "batch_solve.solve_batched"),
-    (dict(jit_mode="iteration"), dict(_mesh="mesh"), "ROADMAP.md section 1, item 15"),
-    (dict(checkpoint_format="orbax"), {}, "ROADMAP.md section 1, item 15"),
     (dict(profile_dir="trace"), {}, "ROADMAP.md section 1, item 16"),
 ]
 
 
 @pytest.mark.parametrize("opts,attrs,item", UNPORTED, ids=[
-    "parametric_fused_state", "mesh_sharded_fused_qn_state",
-    "('checkpoint_format', 'orbax')", "('profile_dir', 'trace')"])
+    "parametric_fused_state", "('profile_dir', 'trace')"])
 def test_unported_options_raise(opts, attrs, item):
     o = NlpOptions()
     o.update(compute_mode="cpu", verbosity_level=0, **opts)
@@ -156,7 +154,7 @@ def test_unported_solvers_and_formulations_raise():
 def test_restoration_over_an_unported_formulation_raises():
     """Feasibility restoration keeps the base's structure class; a base
     that is neither MDS, dense-constrained nor sparse (here the bare
-    formulation base class) raises naming its ROADMAP item."""
+    formulation base class) raises naming the three classes there are."""
     from types import SimpleNamespace
 
     from hiop_tpu_torch.optimization.fr_problem import apply_feasibility_restoration
@@ -165,7 +163,7 @@ def test_restoration_over_an_unported_formulation_raises():
     o.update(compute_mode="cpu", verbosity_level=0)
     base = NlpFormulation(mds_ex1.MdsEx1(8, 4), o)
     solver = SimpleNamespace(nlp=base, filter=None, log=base.log)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="NlpDenseConstraints, NlpMDS and NlpSparse"):
         apply_feasibility_restoration(solver, None, 0.1, SimpleNamespace(nlp_feasib=1.0))
 
 
