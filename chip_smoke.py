@@ -195,7 +195,20 @@ the script exits nonzero):
     20/100 with the scenario partition and ``accum_local`` (the
     one-process host loop's iterations and objective), and the gloo
     allreduce ladder. ``chip_measure.py dist`` runs ranks on separate
-    cards (NCCL).
+    cards (NCCL);
+36. the surface: mds_ex1 400/100 with ``profile_dir`` (a trace with CUDA
+    activity is written; phase 4's iterations and objective bit for bit);
+    ``exec_policies``: mds_ex1 under ``xla`` (the Cholesky's library lane,
+    cuSOLVER, and no kernel launch) and ``pallas`` (the kernel lane only),
+    each at ``SELFCHECK_OBJ``, and ACOPF B=``FULL_B`` under ``xla`` capped at
+    ``B512_MAX_ITER`` (the LDL^T kernel at 4736, the library's Cholesky of
+    S at 4608; s/iter and Cholesky ms per iteration beside phase 6's); the
+    C interface: ``tests/data``'s three C problems compiled with ``gcc``
+    and solved on the card (sparse Ex1 at ``SELFCHECK[50]``, the dense
+    problem at 20/8, the MDS problem at its CPU solve's objective);
+    ``KronReduction`` on the card against the CPU; the HPC drivers
+    (``hpc_multisolves`` 5 x 400/100, ``hpc_benchmark`` over a world-1 NCCL
+    group).
 
 Each main-path phase sets the launch counts to zero just before each solve
 and reads them just after; phases 14-16 also read them around each nested
@@ -205,7 +218,9 @@ kernels there (``fr_path_kernel_ms``); phases 18-22 give theirs as
 ``fused_path_launches``, phases 31-33 their batched launches as
 ``batched_path_launches`` (by ``name:n:dtype:S``), phase 30's rows
 as ``batched_shapes``, and phases 34-35 the sharded runs' launches
-(phase 35: rank 0's) as ``sharded_path_launches``. The last three lines of
+(phase 35: rank 0's) as ``sharded_path_launches``, and phase 36's as
+``surface_path_launches`` with the Cholesky's library-lane calls under
+``xla`` as ``xla_library_calls``. The last three lines of
 standard output are the ``kernels`` JSON line, the ``nvidia-smi``
 name/power-limit line, and ``{"ok": true, "device": {...}}``.
 """
@@ -2508,6 +2523,182 @@ def rank_worker() -> int:
     return 0
 
 
+#: phase 36: the C examples of the JAX package's tests, compiled with gcc
+C_EXAMPLES = {"sparse": "c_problem_example", "dense": "c_dense_problem_example",
+              "mds": "c_mds_problem_example"}
+
+
+def _trace_summary(path: str) -> dict:
+    """What a ``profile_dir`` trace holds: its events by category, the
+    device events (kernels, copies, memsets), the CUDA-graph launches, the
+    device events of the hand-written kernels (replayed inside those
+    graphs) by name, and the most frequent device event names."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    cats, names = {}, {}
+    for e in events:
+        cat = e.get("cat", "")
+        cats[cat] = cats.get(cat, 0) + 1
+        if cat in ("kernel", "gpu_memcpy", "gpu_memset"):
+            names[e.get("name", "")] = names.get(e.get("name", ""), 0) + 1
+    graph = sum(1 for e in events if "GraphLaunch" in str(e.get("name", "")))
+    ours = {}
+    for n, k in names.items():
+        for stem in ("diag_factor", "panel<", "update<", "copy_lower", "nan_fill_if_failed", "set_args"):
+            if stem in n:
+                ours[stem] = ours.get(stem, 0) + k
+    top = sorted(names.items(), key=lambda kv: -kv[1])[:5]
+    return {"bytes": os.path.getsize(path), "by_category": cats,
+            "device_events": sum(names.values()), "graph_launches": graph,
+            "hand_written_kernels": ours, "top_device_events": [(n[:60], k) for n, k in top]}
+
+
+def _surface_solve(torch, name, run, need):
+    """One solve of phase 36 with the counts at zero: the result, its wall
+    and kernel launches by size, and the dispatchers' lanes."""
+    from hiop_tpu_torch.linalg import kernels as K
+
+    r, wall, _, sizes = _solve_phase(torch, name, run, need)
+    lanes = {f"{op}:{lane}": v for (op, lane), v in sorted(K.stats.lanes.items())}
+    library = {f"{k[0]}:{k[1]}:{k[2]}": v for k, v in sorted(K.stats.library.items())}
+    _log(f"  {name}: lanes {lanes}, library calls by size {library}")
+    return r, wall, sizes, lanes, library
+
+
+def phase_surface(torch, dev, phase4, phase6) -> dict:
+    """Phase 36: profile_dir, exec_policies, the C interface,
+    KronReduction and the HPC drivers on the card. Returns, by run, the
+    kernel launches by size (``surface``) and the library-lane calls by
+    size under ``xla`` (``library``)."""
+    import shutil
+    import tempfile
+
+    from hiop_tpu_torch import capi
+    from hiop_tpu_torch.examples import acopf_mds, hpc_benchmark, hpc_multisolves, mds_ex1, sparse_ex1
+    from hiop_tpu_torch.linalg import kernels as K
+    from hiop_tpu_torch.utils.kron_reduction import KronReduction
+
+    out = {"surface": {}, "library": {}}
+    need_chol = {"cholesky": "quick tier"}
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- profile_dir
+        trace_dir = os.path.join(tmp, "trace")
+        r, wall, sizes, _, _ = _surface_solve(
+            torch, "mds_ex1 profile_dir",
+            lambda: mds_ex1.solve(400, 100, verbosity_level=0, profile_dir=trace_dir), need_chol)
+        files = os.listdir(trace_dir) if os.path.isdir(trace_dir) else []
+        _check(len(files) == 1, f"profile_dir: {len(files)} trace files")
+        summary = _trace_summary(os.path.join(trace_dir, files[0]))
+        _log(f"  profile_dir trace {files[0]}: {summary}")
+        _check(summary["device_events"] > 0, "profile_dir: the trace holds no CUDA activity")
+        same = (r.status == phase4.status and r.iterations == phase4.iterations and r.obj == phase4.obj
+                and r.x.tobytes() == phase4.x.tobytes())
+        _log(f"  profile_dir: {r.iterations} iterations, obj {r.obj!r}; the same bits as phase 4: {same}; "
+             f"{wall:.3f} s against phase 4's solve")
+        _check(same, "profile_dir changed the solve")
+        out["surface"]["mds_ex1 profile_dir"] = sizes
+
+        # --- exec_policies
+        for policy, lane, other in (("xla", "library", "kernel"), ("pallas", "kernel", "library")):
+            r, wall, sizes, lanes, library = _surface_solve(
+                torch, f"mds_ex1 exec_policies={policy}",
+                lambda: mds_ex1.solve(400, 100, verbosity_level=0, exec_policies=policy),
+                need_chol if lane == "kernel" else {})
+            _check(r.status.is_success and abs(r.obj - mds_ex1.SELFCHECK_OBJ) <= 1e-6,
+                   f"mds_ex1 {policy}: {r.status.name}, obj {r.obj!r}")
+            _check(lanes.get(f"cholesky:{lane}", 0) > 0 and lanes.get(f"cholesky:{other}", 0) == 0,
+                   f"mds_ex1 {policy}: Cholesky lanes {lanes}")
+            out["surface"][f"mds_ex1 {policy}"] = sizes
+            if policy == "xla":
+                _check(not sizes, f"mds_ex1 xla: kernel launches {sizes}")
+                out["library"][f"mds_ex1 {policy}"] = library
+        K.stats.timing = True
+        r, wall, sizes, lanes, library = _surface_solve(
+            torch, f"acopf B={FULL_B} exec_policies=xla",
+            lambda: acopf_mds.solve(FULL_B, verbosity_level=0, linear_solver_dense="auto",
+                                    max_iter=B512_MAX_ITER, exec_policies="xla"),
+            {"ldl_nopiv": "device safe tier"})
+        kms = K.stats.device_ms()
+        K.stats.timing = False
+        its = max(r.iterations, 1)
+        _check(sizes.get("ldl_nopiv:4736:float64", 0) > 0, "acopf B=512 xla: no LDL^T kernel at 4736")
+        _check(library.get("cholesky:4608:float64", 0) > 0 and not lanes.get("cholesky:kernel"),
+               f"acopf B=512 xla: the Cholesky of S did not take the library lane ({lanes})")
+        _check(r.obj == r.obj and abs(r.obj) < float("inf"), f"acopf B=512 xla: objective {r.obj!r}")
+        w6, its6, kms6 = phase6
+        _log(f"  acopf B={FULL_B}: xla {wall / its:.4f} s/iter, Cholesky (cuSOLVER) "
+             f"{kms.get('cholesky_library', 0.0) / its:.3f} ms/iter over {library.get('cholesky:4608:float64', 0)}"
+             f" + {library.get('cholesky:102:float64', 0)} calls, LDL^T {kms.get('ldl_nopiv', 0.0) / its:.3f}"
+             f" ms/iter; phase 6 (auto, the kernels): {w6 / its6:.4f} s/iter, Cholesky kernel "
+             f"{kms6.get('cholesky', 0.0) / its6:.3f} ms/iter, LDL^T {kms6.get('ldl_nopiv', 0.0) / its6:.3f} "
+             f"ms/iter")
+        out["surface"][f"acopf B={FULL_B} xla"] = sizes
+        out["library"][f"acopf B={FULL_B} xla"] = library
+
+        # --- the C interface
+        cc = shutil.which("gcc") or shutil.which("cc")
+        _check(cc is not None, "the C interface: no C compiler")
+        libs = {}
+        for kind, stem in C_EXAMPLES.items():
+            libs[kind] = os.path.join(tmp, stem + ".so")
+            subprocess.run([cc, "-O2", "-shared", "-fPIC", os.path.join(HERE, "tests", "data", stem + ".c"),
+                            "-o", libs[kind], "-lm"], check=True, capture_output=True, timeout=120)
+        r, _, sizes, _, _ = _surface_solve(
+            torch, "C sparse problem", lambda: capi.solve_sparse_problem(libs["sparse"], verbosity_level=0),
+            {})
+        ref, tol = sparse_ex1.SELFCHECK[50]
+        _check(r.status.is_success and abs((r.obj - ref) / (1 + ref)) <= tol,
+               f"C sparse problem: {r.status.name}, obj {r.obj!r} against {ref!r}")
+        out["surface"]["C sparse"] = sizes
+        r, _, sizes, _, _ = _surface_solve(
+            torch, "C dense problem", lambda: capi.solve_dense_problem(libs["dense"], verbosity_level=0), {})
+        _check(r.status.is_success and abs(r.obj - 20 / 8.0) < 1e-6,
+               f"C dense problem: {r.status.name}, obj {r.obj!r} against 2.5")
+        out["surface"]["C dense"] = sizes
+        r, _, sizes, _, _ = _surface_solve(
+            torch, "C MDS problem", lambda: capi.solve_mds_problem(libs["mds"], verbosity_level=0), need_chol)
+        r_cpu = capi.solve_mds_problem(libs["mds"], verbosity_level=0, compute_mode="cpu")
+        _log(f"  C MDS problem on the CPU: {r_cpu.status.name} {r_cpu.iterations} iterations obj {r_cpu.obj!r}")
+        _check(r.status.name == "Solve_Success" and abs(r.obj - r_cpu.obj) <= 1e-8 * max(1.0, abs(r_cpu.obj)),
+               f"C MDS problem: {r.status.name}, obj {r.obj!r} against the CPU's {r_cpu.obj!r}")
+        out["surface"]["C mds"] = sizes
+
+    # --- KronReduction: tests/test_transforms.py's cases, card against CPU
+    import numpy as np
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(0)
+    Yd = rng.standard_normal((10, 10)) + 1j * rng.standard_normal((10, 10)) + 10 * np.eye(10)
+    Ys = np.zeros((30, 30), np.complex128)
+    for i in range(30):
+        Ys[i, i] = 4.0 + 0.5j
+        if i + 1 < 30:
+            Ys[i, i + 1] = Ys[i + 1, i] = -1.0 + 0.2j
+    Ys[0, 29] = Ys[29, 0] = -0.5 + 0.1j
+    for name, Y, aux in (("dense n=10", Yd, [2, 5, 7]), ("sparse n=30", sp.csr_matrix(Ys), [3, 8, 15, 22])):
+        kg, kc = KronReduction(Y, aux), KronReduction(Y, aux, device="cpu")
+        v = rng.standard_normal(Y.shape[0] - len(aux)) + 1j * rng.standard_normal(Y.shape[0] - len(aux))
+        Rg, vg = kg.reduce(), kg.apply_nonaux_to_aux(v)
+        _check(Rg.is_cuda and vg.is_cuda, f"KronReduction {name}: results not on the card")
+        err = max(float((Rg.cpu() - kc.reduce()).abs().max()),
+                  float((vg.cpu() - kc.apply_nonaux_to_aux(v)).abs().max()))
+        _log(f"  KronReduction {name}: card against CPU max abs diff {err:.3e}")
+        _check(err <= 1e-12, f"KronReduction {name}: {err:.3e}")
+
+    # --- the HPC drivers
+    t0 = time.perf_counter()
+    rc = hpc_multisolves.main(["5", "400", "100"])
+    _log(f"  hpc_multisolves 5 x 400/100: exit {rc}, {time.perf_counter() - t0:.2f} s")
+    _check(rc == 0, f"hpc_multisolves: exit {rc}")
+    t0 = time.perf_counter()
+    rc = hpc_benchmark.main(["32768", "3", "20"])
+    backend = torch.distributed.get_backend()
+    torch.distributed.destroy_process_group()
+    _log(f"  hpc_benchmark 3 rungs over {backend}, world of one: exit {rc}, {time.perf_counter() - t0:.2f} s")
+    _check(rc == 0 and backend == "nccl", f"hpc_benchmark: exit {rc} over {backend}")
+    return out
+
+
 def main() -> int:
     if sys.argv[1:2] == ["--rank-worker"]:
         return rank_worker()
@@ -2619,6 +2810,8 @@ def main() -> int:
     batched.update(phase_pridec(torch))
     sharded = phase_mesh(torch, dev)
     sharded.update(phase_two_ranks(torch, r_acopf32))
+    _log("[36] the surface: profile_dir, exec_policies, the C interface, KronReduction, the HPC drivers")
+    surface = phase_surface(torch, dev, r4, (wall, its, kms))
 
     src = {"cholesky": ("hiop_tpu_torch/csrc/cholesky.cu", "hiop_tpu/linalg/cholesky.py:85"),
            "ldl_nopiv": ("hiop_tpu_torch/csrc/ldl_nopiv.cu", "hiop_tpu/linalg/ldl_blocked.py:214")}
@@ -2668,6 +2861,12 @@ def main() -> int:
                 sharded_path_launches={
                     run: {k: v for k, v in got.items() if k.startswith(name + ":") and k.endswith(dname)}
                     for run, got in sharded.items()},
+                surface_path_launches={
+                    run: {k: v for k, v in got.items() if k.startswith(name + ":") and k.endswith(dname)}
+                    for run, got in surface["surface"].items()},
+                xla_library_calls={
+                    run: {k: v for k, v in got.items() if k.startswith(name + ":") and k.endswith(dname)}
+                    for run, got in surface["library"].items()},
                 batched_shapes=[x for x in batched_rows[name] if x["dtype"] == dname],
                 **({"sparse_normaleqn_shape": sparse["sparse_ex1 normaleqn"]["alone"]}
                    if name == "cholesky" and dname == "float64" else {}),

@@ -11,9 +11,26 @@ string options (mem_space, mem_backend, exec_policies, compute_mode) to a
   is visible: a solve never carries on on the CPU unless the caller asked
   for it.
 
-The hot dense factorizations dispatch on the device of their input (the
-hand-written CUDA kernels for a CUDA tensor, their plain PyTorch versions
-for a CPU tensor), so there is no separate kernel-backend axis.
+``exec_policies`` selects the lane of the dense factorizations
+(:func:`kernel_backend`; the solver applies it for the duration of each
+solve, :func:`hiop_tpu_torch.linalg.cholesky.backend_scope`):
+
+============================  ==========================================  =====================
+``exec_policies``             Cholesky (single, batched, vmapped,         no-pivot LDL^T
+                              DTensor replica)
+============================  ==========================================  =====================
+``pallas``                    the hand-written kernel, f32 and f64        the hand-written kernel
+``auto`` (default)            the hand-written kernel                     the hand-written kernel
+``xla``, ``seq``, ``raja``    ``torch.linalg.cholesky_ex`` (cuSOLVER on   the hand-written kernel
+                              a card, LAPACK on the CPU)
+============================  ==========================================  =====================
+
+A kernel lane on a CPU tensor is the kernel's plain PyTorch version. In
+``hiop_tpu``, ``auto`` means ``xla`` and ``pallas`` takes the Pallas
+kernels for f32 only (Mosaic has no f64); here ``auto`` keeps the
+hand-written kernels, and ``pallas`` takes them in f64 too (the card has
+f64 tensor cores). No library has a no-pivot LDL^T, so every value keeps
+that kernel.
 """
 
 from __future__ import annotations
@@ -39,3 +56,9 @@ def on_accelerator(device: torch.device) -> bool:
     for 'does the device tier of a solver ladder apply here'
     (``hiop_tpu``'s version looks for a TPU among the visible devices)."""
     return device.type == "cuda"
+
+
+def kernel_backend(exec_policies: str) -> str:
+    """The Cholesky lane of an ``exec_policies`` value (table above):
+    ``"library"`` for ``xla``, ``seq`` and ``raja``, else ``"kernel"``."""
+    return "library" if exec_policies in ("xla", "seq", "raja") else "kernel"

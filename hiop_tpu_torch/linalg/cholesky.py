@@ -26,13 +26,27 @@ single launch's), on the CPU by :func:`cholesky_plain_batched`.
 calls :func:`cholesky_batched` once for all lanes, as ``pallas_call``'s
 batching rule adds a grid axis under ``jax.vmap`` in ``hiop_tpu``.
 
+Backends: ``hiop_tpu`` picks between its Pallas kernel and
+``jnp.linalg.cholesky`` by a module global that the solver sets from the
+``exec_policies`` option (``set_backend``). Here :func:`set_backend` /
+:func:`backend` hold ``"kernel"`` (the hand-written kernel on a card, its
+plain version on the CPU; the default) or ``"library"``
+(``torch.linalg.cholesky_ex``: cuSOLVER on a card, LAPACK on the CPU), in a
+context variable that each solve sets for its own run and restores
+(:func:`backend_scope`); the mapping from the option is
+:func:`hiop_tpu_torch.backends.execspace.kernel_backend`. The lane of every
+call is counted in ``kernels.stats.lanes``.
+
 Failure semantics are those of ``jnp.linalg.cholesky``, which the f64
 main path of ``hiop_tpu`` relies on (``kkt/mds.py``: ok = all(isfinite(L))):
 when a pivot is not finite and positive, the whole lower triangle is NaN
-and the upper triangle is 0.
+and the upper triangle is 0. Every lane keeps them.
 """
 
 from __future__ import annotations
+
+import contextlib
+import contextvars
 
 import torch
 
@@ -42,6 +56,36 @@ from hiop_tpu_torch.utils.dtensor import is_dtensor, local as mesh_local
 NB = _k.NB
 OB = _k.OB
 LEAF = _k.LEAF
+
+BACKENDS = ("kernel", "library")
+_BACKEND = contextvars.ContextVar("hiop_tpu_torch_cholesky_backend", default="kernel")
+
+
+def _checked(name: str) -> str:
+    if name not in BACKENDS:
+        raise ValueError(f"cholesky backend {name!r} is not one of {BACKENDS}")
+    return name
+
+
+def set_backend(name: str) -> None:
+    """Select the Cholesky lane of this context: ``"kernel"`` or
+    ``"library"``."""
+    _BACKEND.set(_checked(name))
+
+
+def backend() -> str:
+    return _BACKEND.get()
+
+
+@contextlib.contextmanager
+def backend_scope(name: str):
+    """:func:`set_backend` for the duration of a block (one solve), then
+    the lane that was selected before."""
+    token = _BACKEND.set(_checked(name))
+    try:
+        yield
+    finally:
+        _BACKEND.reset(token)
 
 
 def cholesky(A: torch.Tensor) -> torch.Tensor:
@@ -56,21 +100,42 @@ def cholesky(A: torch.Tensor) -> torch.Tensor:
 
 
 def _cholesky_one(A: torch.Tensor) -> torch.Tensor:
-    if A.is_cuda:
-        return cholesky_cuda(A)
-    if A.device.type != "cpu":
+    if A.device.type not in ("cuda", "cpu"):
         raise ValueError(f"cholesky: unsupported device {A.device}")
+    if _BACKEND.get() == "library":
+        return cholesky_library(A, "cholesky")
+    if A.is_cuda:
+        _k.stats.lane("cholesky", "kernel")
+        return cholesky_cuda(A)
+    _k.stats.lane("cholesky", "plain")
     return cholesky_plain(A)
 
 
 def cholesky_batched(A: torch.Tensor) -> torch.Tensor:
     """Lower Cholesky factors of an (S, n, n) stack of symmetric matrices;
     a matrix whose factorization fails gets the NaN lower triangle alone."""
-    if A.is_cuda:
-        return cholesky_batched_cuda(A)
-    if A.device.type != "cpu":
+    if A.device.type not in ("cuda", "cpu"):
         raise ValueError(f"cholesky_batched: unsupported device {A.device}")
+    if _BACKEND.get() == "library":
+        return cholesky_library(A, "cholesky_batched")
+    if A.is_cuda:
+        _k.stats.lane("cholesky_batched", "kernel")
+        return cholesky_batched_cuda(A)
+    _k.stats.lane("cholesky_batched", "plain")
     return cholesky_plain_batched(A)
+
+
+def cholesky_library(A: torch.Tensor, op: str = "cholesky") -> torch.Tensor:
+    """The library lane: ``torch.linalg.cholesky_ex`` of one matrix or an
+    (S, n, n) stack (lower triangle read), with ``jnp.linalg.cholesky``'s
+    failure semantics built on the device from ``info`` (no host read)."""
+    start = _k.stats.begin() if A.is_cuda else None
+    L, info = torch.linalg.cholesky_ex(A, check_errors=False)
+    # a failed matrix becomes all NaN, then tril_ zeroes its upper triangle
+    # (a factor that succeeded is lower triangular already)
+    L = torch.where((info == 0)[..., None, None], L, float("nan")).tril_()
+    _k.stats.lane(op, "library", A, start)
+    return L
 
 
 class _Cholesky(torch.autograd.Function):

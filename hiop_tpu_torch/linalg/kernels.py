@@ -24,6 +24,14 @@ the counts to zero, drives the solver, and reads them to show which kernels
 its main path went through. With ``stats.timing`` set, each launch is also
 bracketed by CUDA events so that the kernels' device time over a run can be
 summed.
+
+:attr:`KernelStats.lanes` counts, at the dispatchers of
+:mod:`~hiop_tpu_torch.linalg.cholesky` and
+:mod:`~hiop_tpu_torch.linalg.ldl_blocked`, which lane served each call:
+``kernel`` (the hand-written kernel), ``plain`` (its plain PyTorch version,
+a CPU tensor) or ``library`` (``torch.linalg.cholesky_ex``, the Cholesky
+under ``exec_policies`` = ``xla``/``seq``/``raja``). It counts on the CPU
+too, so a CPU run shows which lane the option selected.
 """
 
 from __future__ import annotations
@@ -63,6 +71,8 @@ class KernelStats:
         self.launches: Counter = Counter()   # name -> launches
         self.sizes: Counter = Counter()      # (name, n, dtype) -> launches
         self.batches: Counter = Counter()    # (name, n, dtype, S) -> batched launches
+        self.lanes: Counter = Counter()      # (op, lane) -> calls at the dispatcher
+        self.library: Counter = Counter()    # (op, n, dtype) -> library-lane calls
         self.timing = False
         self.events: list = []               # (name, n, dtype, start, end) when timing
 
@@ -70,6 +80,8 @@ class KernelStats:
         self.launches.clear()
         self.sizes.clear()
         self.batches.clear()
+        self.lanes.clear()
+        self.library.clear()
         self.events.clear()
 
     def begin(self):
@@ -93,6 +105,22 @@ class KernelStats:
             end = torch.cuda.Event(enable_timing=True)
             end.record()
             self.events.append((name, n, dname, start, end))
+
+    def lane(self, op: str, lane: str, A=None, start=None) -> None:
+        """Count one call of ``op`` served by ``lane``; a ``library`` call
+        also by size, and under :attr:`timing` its CUDA events go into
+        :attr:`events` as ``<op>_library``."""
+        self.lanes[(op, lane)] += 1
+        if lane != "library":
+            return
+        dname = str(A.dtype).replace("torch.", "")
+        self.library[(op, A.shape[-1], dname)] += 1
+        if start is not None:
+            import torch
+
+            end = torch.cuda.Event(enable_timing=True)
+            end.record()
+            self.events.append((op + "_library", A.shape[-1], dname, start, end))
 
     def device_ms(self, by_dtype: bool = False) -> dict:
         """Summed kernel milliseconds over the recorded launches, by name,

@@ -26,6 +26,10 @@ The no-pivot factor is unique, so the block width (64 here, 128 in the
 JAX lanes) changes the result by rounding only. A zero pivot gives d = 0
 and a zeroed column, not NaN; ``ok`` then reports the breakdown.
 
+Every ``exec_policies`` value takes this kernel (no library has a
+no-pivot LDL^T; the plain version is the CPU lane and the tests'
+yardstick); ``kernels.stats.lanes`` counts the lane of each call.
+
 Solve = unit-lower triangular solve, diagonal scale, unit-upper solve
 (``torch.linalg.solve_triangular``; in JAX these are XLA calls outside the
 Pallas kernel too).
@@ -96,18 +100,22 @@ def ldl_nopiv(A: torch.Tensor):
 
 def _ldl_nopiv_one(A: torch.Tensor):
     if A.is_cuda:
+        _k.stats.lane("ldl_nopiv", "kernel")
         return ldl_nopiv_cuda(A)
     if A.device.type != "cpu":
         raise ValueError(f"ldl_nopiv: unsupported device {A.device}")
+    _k.stats.lane("ldl_nopiv", "plain")
     return ldl_nopiv_plain(A)
 
 
 def ldl_nopiv_batched(A: torch.Tensor):
     """(L, d) of each matrix of an (S, n, n) stack: (S, n, n) and (S, n)."""
     if A.is_cuda:
+        _k.stats.lane("ldl_nopiv_batched", "kernel")
         return ldl_nopiv_batched_cuda(A)
     if A.device.type != "cpu":
         raise ValueError(f"ldl_nopiv_batched: unsupported device {A.device}")
+    _k.stats.lane("ldl_nopiv_batched", "plain")
     return ldl_nopiv_plain_batched(A)
 
 

@@ -49,9 +49,11 @@ import numpy as np
 import torch
 from torch.func import grad, hessian, jacfwd, vmap
 
+from hiop_tpu_torch.backends.execspace import kernel_backend
 from hiop_tpu_torch.formulation.dense import NlpDenseConstraints
 from hiop_tpu_torch.formulation.mds import NlpMDS
 from hiop_tpu_torch.interface.base import AutoDiffNlpProblem
+from hiop_tpu_torch.linalg import cholesky as chol
 from hiop_tpu_torch.optimization import duals_update as du
 from hiop_tpu_torch.optimization import fused_newton as fn
 from hiop_tpu_torch.optimization import iterate as it_mod
@@ -858,12 +860,15 @@ def _build_lane_solve(pnlp, consts, term):
 def solve_batched(pnlp, params) -> BatchResult:
     """Solve every scenario of the family in lockstep and return the
     per-scenario results. ``params``: a pytree with a leading scenario axis
-    (tensors, numpy arrays, or numbers in dicts, tuples and lists)."""
+    (tensors, numpy arrays, or numbers in dicts, tuples and lists). The
+    Cholesky lane follows the family's ``exec_policies``, as a solver's
+    ``run`` does."""
     batched = getattr(pnlp, "_batched_solve_cache", None)
     if batched is None:
         batched = build_batched_solve(pnlp)
         pnlp._batched_solve_cache = batched
-    state, _mu, it_num, st, err, _hist = batched(params)
+    with chol.backend_scope(kernel_backend(pnlp.options.str_("exec_policies"))):
+        state, _mu, it_num, st, err, _hist = batched(params)
     _th, core = state
     host = torch.stack([st.to(torch.float64), it_num.to(torch.float64), err,
                         core.f.to(torch.float64)]).cpu().numpy()

@@ -46,22 +46,28 @@ to :meth:`FilterIPMBase._run_loop`. A formulation sharded over a mesh
 (:func:`hiop_tpu_torch.parallel.mesh.shard_formulation`) runs the same
 code on DTensor values inside :func:`~hiop_tpu_torch.parallel.mesh.solve_scope`;
 the Newton strategies factor their small systems on each rank's replica,
-and the result is gathered and trimmed of the mesh's padding. Options and
-paths that need modules not ported yet raise :class:`NotImplementedError`
-naming the ROADMAP.md item that will port them.
+and the result is gathered and trimmed of the mesh's padding.
+
+Each :meth:`FilterIPMBase.run` selects the dense factorizations' lane from
+``exec_policies`` for its own duration
+(:func:`hiop_tpu_torch.backends.execspace.kernel_backend`), and with
+``profile_dir`` set runs under ``torch.profiler`` and writes a Chrome trace
+there.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import time
 from dataclasses import dataclass
 from typing import Optional
 
 import numpy as np
 import torch
 
-from hiop_tpu_torch.backends.execspace import on_accelerator, resolve_device
+from hiop_tpu_torch.backends.execspace import kernel_backend, on_accelerator, resolve_device
 from hiop_tpu_torch.formulation.base import NlpFormulation, to_numpy
 from hiop_tpu_torch.interface.base import IterateCallbackInfo
 from hiop_tpu_torch.kkt import condensed as kkt_cond
@@ -71,6 +77,7 @@ from hiop_tpu_torch.kkt import mds as kkt_mds
 from hiop_tpu_torch.kkt import newton_dense as kkt_nd
 from hiop_tpu_torch.kkt import normal_eqn as kkt_ne
 from hiop_tpu_torch.kkt import sparse_direct as kkt_sd
+from hiop_tpu_torch.linalg import cholesky as chol_mod
 from hiop_tpu_torch.linalg import krylov
 from hiop_tpu_torch.linalg.sparse import TripletMatrix
 from hiop_tpu_torch.native import ldl as native_ldl
@@ -89,6 +96,31 @@ from hiop_tpu_torch.utils import kkt_io
 from hiop_tpu_torch.parallel.mesh import shard_n, solve_scope, to_host
 from hiop_tpu_torch.utils.dtensor import plain, replicate_like
 from hiop_tpu_torch.utils.logger import Verbosity
+
+
+@contextlib.contextmanager
+def _solve_trace(profile_dir: str, device: torch.device):
+    """``torch.profiler`` around one solve when ``profile_dir`` is set (the
+    reference wraps the solve in ``jax.profiler.trace(profile_dir)``): CPU
+    activities, and CUDA ones on a card. On exit a Chrome trace goes to
+    ``profile_dir``, named by rank and process so that ranks do not
+    overwrite each other."""
+    if not profile_dir:
+        yield
+        return
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == "cuda" else [])
+    prof = profile(activities=acts)
+    try:
+        with prof:
+            yield
+    finally:
+        rank = dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+        os.makedirs(profile_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(
+            profile_dir, f"hiop_solve_rank{rank}_pid{os.getpid()}_{time.time_ns()}.pt.trace.json"))
 
 
 @dataclass
@@ -113,12 +145,6 @@ class _FusedFallback(Exception):
     """Raised by the fused modes when an iteration needs machinery that
     lives only in the general loop (regularization past the ladder, SOC
     and restoration after a rejected line search)."""
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to hiop_tpu_torch yet (ROADMAP.md section 1, {item})"
-    )
 
 
 def _unknown_formulation(what: str, nlp):
@@ -1559,6 +1585,10 @@ class FilterIPMBase:
         self.max_soc_iter = o.integer("max_soc_iter")
         self.kappa_soc = o.num("kappa_soc")
 
+        # the dense factorizations' lane (exec_policies, the reference's
+        # ExecSpace policy axis); applied by run() for its own duration
+        self.kernel_backend = kernel_backend(o.str_("exec_policies"))
+
         self.filter = Filter()
         self.theta_max = 1e7
         self.theta_min = 1e7
@@ -1699,10 +1729,8 @@ class FilterIPMBase:
 
     # ------------------------------------------------------------------ run
     def run(self) -> SolverResult:
-        o = self.opts
-        if o.str_("profile_dir"):
-            raise _not_ported("profile_dir", "item 16: tracing surface")
-        with solve_scope(self.nlp):
+        with solve_scope(self.nlp), chol_mod.backend_scope(self.kernel_backend), \
+                _solve_trace(self.opts.str_("profile_dir"), self.nlp.device):
             return self._run_dispatch()
 
     def _run_general(self) -> SolverResult:

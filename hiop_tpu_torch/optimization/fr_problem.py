@@ -420,9 +420,11 @@ def apply_feasibility_restoration(solver, it_curr, mu, norms):
 
     o = NlpOptions()
     # inherit key tolerances from the base solve; quiet nested output. The
-    # nested solve also inherits the base's compute_mode, and only that:
-    # fresh options would resolve "auto" to cuda:0, and the nested solve
-    # must stay on the base solve's device
+    # nested solve also inherits the base's compute_mode and exec_policies,
+    # and only those: fresh options would resolve "auto" to cuda:0, and the
+    # nested solve must stay on the base solve's device and factorization
+    # lane (hiop_tpu's fresh options reset its global backend to xla for
+    # the rest of the outer solve)
     o.update(
         mu0=max(fr_prob.mu_fr, 1e-6),
         tolerance=base.options.num("tolerance"),
@@ -431,6 +433,7 @@ def apply_feasibility_restoration(solver, it_curr, mu, norms):
         scaling_type="none",
         force_resto="no",
         compute_mode=base.options.str_("compute_mode"),
+        exec_policies=base.options.str_("exec_policies"),
     )
     fr_file = base.options.str_("options_file_fr_prob")
     if fr_file and os.path.exists(fr_file):

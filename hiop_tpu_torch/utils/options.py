@@ -344,9 +344,9 @@ class NlpOptions(OptionsBase):
         rs("linsol_mode", "stable", ["stable", "speculative", "forcequick"],
            "stable=safe factorizations; speculative=try fast path w/ fallback; forcequick=fast only")
         rs("profile_dir", "", None,
-           "when nonempty, wrap the solve in a jax profiler trace written to "
-           "this directory (device-level view on top of the runstats phase "
-           "timers)")
+           "when nonempty, run the solve under torch.profiler and write a "
+           "Chrome trace to this directory (device-level view on top of the "
+           "runstats phase timers)")
         rs("linear_solver_dense", "auto", ["auto", "ldl_nopiv", "lu_eig"],
            "dense safe-tier KKT solver: ldl_nopiv=on-device blocked no-pivot LDL^T "
            "(MAGMA-Nopiv analogue), lu_eig=host LU + eigen inertia (LAPACK analogue); "
@@ -391,7 +391,8 @@ class NlpOptions(OptionsBase):
            "auto/tpu: device compute when a TPU is visible; cpu forces host")
         rs("mem_backend", "auto", ["auto", "stdcpp", "umpire"], "accepted for parity; no-op on TPU")
         rs("exec_policies", "auto", ["auto", "seq", "raja", "xla", "pallas"],
-           "kernel dispatch: xla (fused jit) or pallas kernels for hot ops")
+           "dense factorizations: auto/pallas the hand-written kernels; xla/seq/raja "
+           "torch.linalg.cholesky_ex for the Cholesky (backends/execspace.py)")
         # checkpointing
         rs("checkpoint_save", "no", ["yes", "no"], "save solver state every N iterations")
         ri("checkpoint_save_every_N_iter", 10, 1, int(1e6), "checkpoint frequency")

@@ -115,17 +115,15 @@ def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
 
 #: (options, formulation attributes, what the message names): the fused
 #: state of a parametric problem (batch_solve's: its family runs through
-#: solve_batched, as in hiop_tpu), then an option (a mesh-sharded fused
-#: state and checkpoint_format=orbax are ported: tests/test_torch_mesh.py,
-#: tests/test_torch_multiprocess.py)
+#: solve_batched, as in hiop_tpu). Every option is ported: a mesh-sharded
+#: fused state and checkpoint_format=orbax in tests/test_torch_mesh.py and
+#: tests/test_torch_multiprocess.py, profile_dir in tests/test_torch_surface.py
 UNPORTED = [
     (dict(jit_mode="solve"), dict(parametric=True), "batch_solve.solve_batched"),
-    (dict(profile_dir="trace"), {}, "ROADMAP.md section 1, item 16"),
 ]
 
 
-@pytest.mark.parametrize("opts,attrs,item", UNPORTED, ids=[
-    "parametric_fused_state", "('profile_dir', 'trace')"])
+@pytest.mark.parametrize("opts,attrs,item", UNPORTED, ids=["parametric_fused_state"])
 def test_unported_options_raise(opts, attrs, item):
     o = NlpOptions()
     o.update(compute_mode="cpu", verbosity_level=0, **opts)
