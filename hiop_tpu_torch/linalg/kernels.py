@@ -23,7 +23,8 @@ under its own name, with its S in :attr:`KernelStats.batches`). A run sets
 the counts to zero, drives the solver, and reads them to show which kernels
 its main path went through. With ``stats.timing`` set, each launch is also
 bracketed by CUDA events so that the kernels' device time over a run can be
-summed.
+summed; the same switch turns on the solver's spans
+(:mod:`hiop_tpu_torch.utils.trace`).
 
 :attr:`KernelStats.lanes` counts, at the dispatchers of
 :mod:`~hiop_tpu_torch.linalg.cholesky` and
@@ -45,6 +46,8 @@ import threading
 import time
 from collections import Counter
 from pathlib import Path
+
+from hiop_tpu_torch.utils import trace as _trace
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("cholesky.cu", "ldl_nopiv.cu")
@@ -73,8 +76,17 @@ class KernelStats:
         self.batches: Counter = Counter()    # (name, n, dtype, S) -> batched launches
         self.lanes: Counter = Counter()      # (op, lane) -> calls at the dispatcher
         self.library: Counter = Counter()    # (op, n, dtype) -> library-lane calls
-        self.timing = False
         self.events: list = []               # (name, n, dtype, start, end) when timing
+
+    @property
+    def timing(self) -> bool:
+        """Per-launch CUDA events, and the solver's spans
+        (:data:`hiop_tpu_torch.utils.trace.recorder`): one switch for both."""
+        return _trace.recorder.on
+
+    @timing.setter
+    def timing(self, on: bool) -> None:
+        _trace.recorder.on = bool(on)
 
     def reset(self) -> None:
         self.launches.clear()

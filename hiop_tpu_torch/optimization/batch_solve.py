@@ -38,6 +38,18 @@ factored with the others and their results discarded, as under vmap.
 
 Completed scenarios idle until the whole batch is done, so batching pays
 most for families with similar iteration counts, the PriDec recourse case.
+
+With ``kernels.stats.timing`` set, the solve records spans
+(:mod:`hiop_tpu_torch.utils.trace`): ``batch.family`` around
+:func:`solve_batched`, carrying :class:`BatchStats` when it closes;
+``batch.init``; one ``batch.trip`` per trip of the loop (the last, empty
+one included), holding ``batch.residual``, ``batch.factor`` (the factorization
+at zero regularization and the loop's test), one ``batch.ladder``,
+``batch.soc`` or ``batch.backtrack`` per round of those loops,
+``batch.direction`` (the direction and the first trial), ``batch.finish``
+and ``batch.update``; then ``batch.results``. Under them, ``kkt.factor``,
+``kkt.solve``, one ``nlp.<hook>`` per vmapped hook call, and ``host.read``
+around every read of device values.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from hiop_tpu_torch.optimization.filter_ipm import FilterIPMBase
 from hiop_tpu_torch.optimization.iterate import Iterate
 from hiop_tpu_torch.status import SolveStatus
 from hiop_tpu_torch.utils.options import NlpOptions
+from hiop_tpu_torch.utils.trace import recorder as _rec
 
 
 def _tree_map(fn_, tree):
@@ -328,9 +341,12 @@ def _lane_hooks(pnlp) -> dict:
     cannot run batched over the scenarios (an in-place write into a tensor
     without the lane axis, a host read, an operation vmap does not batch)."""
     def named(name, fn):
+        span = "nlp." + name
+
         def call(*args):
             try:
-                return fn(*args)
+                with _rec.span(span):
+                    return fn(*args)
             except (RuntimeError, NotImplementedError, ValueError) as e:
                 raise RuntimeError(
                     f"batch_solve: the parametric hook {name} of {type(pnlp).__name__} cannot "
@@ -374,8 +390,9 @@ def build_batched_solve(pnlp):
     tau0 = max(o.num("tau_min"), 1.0 - mu0)
 
     def batched(params):
-        params = tree_on(params, pnlp.device)
-        state0, theta_min, theta_max = init(params)
+        with _rec.span("batch.init"):
+            params = tree_on(params, pnlp.device)
+            state0, theta_min, theta_max = init(params)
         out = solve(params, state0, mu0, tau0, theta_min, theta_max, term["max_iter"])
         batched.stats = solve.stats
         return out
@@ -526,24 +543,27 @@ def _build_lane_solve(pnlp, consts, term):
                 theta_of(it, c, d_eval), logbar_phi(it, f, mu))
 
     def factor(hess, Dx, Dd, Jc, Jd, dw, dc):
-        if not is_mds:
-            return kkt_nd.factorize_quick(hess[0], Dx, Dd, Jc, Jd, dw, dw, dc, dc)
-        hss, Hdd = hess
-        blocks = (hss, Hdd, Dx[:ns], Dx[ns:], Dd, Jc[:, :ns], Jc[:, ns:], Jd[:, :ns], Jd[:, ns:])
-        if use_ldl:
-            return kkt_mds.factorize_saddle_device(*blocks, dw, dw, dc, dc)
-        return kkt_mds.factorize(*blocks, dw, dw, dc, dc)
+        with _rec.span("kkt.factor"):
+            if not is_mds:
+                return kkt_nd.factorize_quick(hess[0], Dx, Dd, Jc, Jd, dw, dw, dc, dc)
+            hss, Hdd = hess
+            blocks = (hss, Hdd, Dx[:ns], Dx[ns:], Dd, Jc[:, :ns], Jc[:, ns:], Jd[:, :ns],
+                      Jd[:, ns:])
+            if use_ldl:
+                return kkt_mds.factorize_saddle_device(*blocks, dw, dw, dc, dc)
+            return kkt_mds.factorize(*blocks, dw, dw, dc, dc)
 
     def solve_dir(fct, res, it):
         """The direction for residual ``res`` from the lane's factors."""
-        rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(res, it, b)
-        if not is_mds:
-            dx, dd_, dyc, dyd = kkt_nd.solve_quick(fct, rx_t, rd_t, ryc, ryd)
-        else:
-            solve_ = kkt_mds.solve_saddle_device if use_ldl else kkt_mds.solve
-            dxs, dxd, dd_, dyc, dyd = solve_(fct, rx_t[:ns], rx_t[ns:], rd_t, ryc, ryd)
-            dx = torch.cat([dxs, dxd])
-        return res_mod.recover_direction(res, it, b, dx, dd_, dyc, dyd)
+        with _rec.span("kkt.solve"):
+            rx_t, rd_t, ryc, ryd = res_mod.compress_rhs_xdycyd(res, it, b)
+            if not is_mds:
+                dx, dd_, dyc, dyd = kkt_nd.solve_quick(fct, rx_t, rd_t, ryc, ryd)
+            else:
+                solve_ = kkt_mds.solve_saddle_device if use_ldl else kkt_mds.solve
+                dxs, dxd, dd_, dyc, dyd = solve_(fct, rx_t[:ns], rx_t[ns:], rd_t, ryc, ryd)
+                dx = torch.cat([dxs, dxd])
+            return res_mod.recover_direction(res, it, b, dx, dd_, dyc, dyd)
 
     def ls_accept(ctx, theta_t, phi_t, alpha):
         """The acceptance code: 0 rejected, 1 (far) or 2 (near) sufficient
@@ -632,87 +652,100 @@ def _build_lane_solve(pnlp, consts, term):
         """One host read: the (S,) tensors stacked and copied by one
         ``tolist``."""
         stats.reads += 1
-        host = torch.stack([t.to(torch.int64) for t in tensors]).tolist()
+        with _rec.span("host.read"):
+            host = torch.stack([t.to(torch.int64) for t in tensors]).tolist()
         return [[bool(v) for v in row] for row in host]
 
     # -- the batched step ----------------------------------------------------
-    def step(th, state, mu, tau, filt, filt_len, theta_min, dw_last, live, stats):
+    def step(th, state, mu, tau, filt, filt_len, theta_min, dw_last, live, stats, trip):
         """One fused iteration of every lane. The first host read carries
         ``live`` (the loop's test, computed by the caller); returns None when
-        no lane is live."""
-        (resid, nlp_optim, nlp_feasib, err_nlp, err_log, Dx, Dd, hess,
-         theta_curr, phi_curr) = v_residual(th, state, mu)
-        it, f, c, d_eval, grad_f, Jc, Jd = state
-        dt = it.x.dtype
-        S = it.x.shape[0]
-        zero = it.x.new_zeros((S,))
+        no lane is live. ``trip``: the trip's span."""
+        with _rec.span("batch.residual"):
+            (resid, nlp_optim, nlp_feasib, err_nlp, err_log, Dx, Dd, hess,
+             theta_curr, phi_curr) = v_residual(th, state, mu)
+            it, f, c, d_eval, grad_f, Jc, Jd = state
+            dt = it.x.dtype
+            S = it.x.shape[0]
+            zero = it.x.new_zeros((S,))
 
         # the regularization ladder (hiopPDPerturbation's curve): delta = 0,
         # then delta_0_bar the first time ever or kappa_w_minus times the
         # last accepted delta, growing by kappa_w_plus_bar before any
         # success and kappa_w_plus after; one batched factorization per trip
-        fct = v_factor(hess, Dx, Dd, Jc, Jd, zero, zero)
-        dc = delta_c_bar * mu ** kappa_c
-        first_ever = dw_last == 0
-        start = torch.where(first_ever, delta0, torch.clamp(dw_last * kappa_minus, min=delta_w_min))
-        grow = torch.where(first_ever, kappa_plus_bar, kappa_plus)
-        k_reg = torch.zeros((S,), dtype=torch.int64, device=dev)
-        dw = zero
-        trying = live & ~fct.ok & (k_reg < MAX_REG)
-        live_h, trying_h = read(stats, live, trying)
-        if not any(live_h):
+        with _rec.span("batch.factor"):
+            fct = v_factor(hess, Dx, Dd, Jc, Jd, zero, zero)
+            dc = delta_c_bar * mu ** kappa_c
+            first_ever = dw_last == 0
+            start = torch.where(first_ever, delta0,
+                                torch.clamp(dw_last * kappa_minus, min=delta_w_min))
+            grow = torch.where(first_ever, kappa_plus_bar, kappa_plus)
+            k_reg = torch.zeros((S,), dtype=torch.int64, device=dev)
+            dw = zero
+            trying = live & ~fct.ok & (k_reg < MAX_REG)
+            live_h, trying_h = read(stats, live, trying)
+        n_live = sum(live_h)
+        trip.set("live", n_live)
+        if not n_live:
             return None
         stats.trips += 1
-        stats.lanes_live += sum(live_h)
+        stats.lanes_live += n_live
         while any(trying_h):
-            stats.ladder_trips += 1
-            stats.ladder_lanes += sum(trying_h)
-            dw_new = torch.where(k_reg == 0, start, dw * grow)
-            fct = _where(trying, v_factor(hess, Dx, Dd, Jc, Jd, dw_new, dc), fct)
-            dw = torch.where(trying, dw_new, dw)
-            k_reg = torch.where(trying, k_reg + 1, k_reg)
-            trying = live & ~fct.ok & (k_reg < MAX_REG)
-            (trying_h,) = read(stats, trying)
-        fct_ok = fct.ok
-        dw_next = torch.where(fct_ok & (dw > 0), dw, dw_last)
+            with _rec.span("batch.ladder") as rnd:
+                n_try = sum(trying_h)
+                rnd.set("lanes", n_try)
+                stats.ladder_trips += 1
+                stats.ladder_lanes += n_try
+                dw_new = torch.where(k_reg == 0, start, dw * grow)
+                fct = _where(trying, v_factor(hess, Dx, Dd, Jc, Jd, dw_new, dc), fct)
+                dw = torch.where(trying, dw_new, dw)
+                k_reg = torch.where(trying, k_reg + 1, k_reg)
+                trying = live & ~fct.ok & (k_reg < MAX_REG)
+                (trying_h,) = read(stats, trying)
 
         # the direction and the first trial at the full fraction-to-the-
         # boundary step
-        dir_, ap_max, ad, grad_phi_dx, first = v_first(
-            th, fct, resid, state, mu, tau, filt, filt_len, theta_min, theta_curr, phi_curr)
-        it_t1, f_t1, c_t1, d_t1, theta_t1, phi_t1, code1 = first
-        ctx = (theta_curr, phi_curr, grad_phi_dx, filt, filt_len, theta_min)
+        with _rec.span("batch.direction"):
+            fct_ok = fct.ok
+            dw_next = torch.where(fct_ok & (dw > 0), dw, dw_last)
+            dir_, ap_max, ad, grad_phi_dx, first = v_first(
+                th, fct, resid, state, mu, tau, filt, filt_len, theta_min, theta_curr, phi_curr)
+            it_t1, f_t1, c_t1, d_t1, theta_t1, phi_t1, code1 = first
+            ctx = (theta_curr, phi_curr, grad_phi_dx, filt, filt_len, theta_min)
 
-        # second-order correction when the first trial fails without
-        # improving infeasibility, up to max_soc_iter rounds while theta
-        # contracts by kappa_soc; the backtracking loop's first test rides
-        # along with each read
-        do_soc = (code1 == 0) & (theta_curr <= theta_t1) & (max_soc > 0)
-        soc = (torch.zeros((S,), dtype=torch.int64, device=dev), torch.zeros_like(code1),
-               crhs - c, it.d - d_eval, ap_max,
-               torch.full((S,), math.inf, dtype=dt, device=dev), theta_t1,
-               it_t1, f_t1, c_t1, d_t1, phi_t1, dir_, ad)
+            # second-order correction when the first trial fails without
+            # improving infeasibility, up to max_soc_iter rounds while theta
+            # contracts by kappa_soc; the backtracking loop's first test rides
+            # along with each read
+            do_soc = (code1 == 0) & (theta_curr <= theta_t1) & (max_soc > 0)
+            soc = (torch.zeros((S,), dtype=torch.int64, device=dev), torch.zeros_like(code1),
+                   crhs - c, it.d - d_eval, ap_max,
+                   torch.full((S,), math.inf, dtype=dt, device=dev), theta_t1,
+                   it_t1, f_t1, c_t1, d_t1, phi_t1, dir_, ad)
 
-        def soc_test(soc):
-            k, code, _cs, _ds, _a, th_prev, th_tr = soc[:7]
-            return live & do_soc & (code == 0) & (k < max_soc) & (
-                (k == 0) | (th_tr <= kappa_soc * th_prev))
+            def soc_test(soc):
+                k, code, _cs, _ds, _a, th_prev, th_tr = soc[:7]
+                return live & do_soc & (code == 0) & (k < max_soc) & (
+                    (k == 0) | (th_tr <= kappa_soc * th_prev))
 
-        def bt_start(soc):
-            soc_code = soc[1]
-            pre = torch.where(code1 > 0, code1, torch.where(soc_code > 0, soc_code, 0))
-            return pre, live & (pre == 0) & (ap_max * 0.5 >= min_step) & (1 < fn.MAX_LS)
+            def bt_start(soc):
+                soc_code = soc[1]
+                pre = torch.where(code1 > 0, code1, torch.where(soc_code > 0, soc_code, 0))
+                return pre, live & (pre == 0) & (ap_max * 0.5 >= min_step) & (1 < fn.MAX_LS)
 
-        soc_go = soc_test(soc)
-        pre_code, bt_go = bt_start(soc)
-        soc_h, bt_h = read(stats, soc_go, bt_go)
-        while any(soc_h):
-            stats.soc_trips += 1
-            stats.soc_lanes += sum(soc_h)
-            soc = _where(soc_go, v_soc(th, fct, resid, state, mu, tau, ctx, ap_max, soc), soc)
             soc_go = soc_test(soc)
             pre_code, bt_go = bt_start(soc)
             soc_h, bt_h = read(stats, soc_go, bt_go)
+        while any(soc_h):
+            with _rec.span("batch.soc") as rnd:
+                n_soc = sum(soc_h)
+                rnd.set("lanes", n_soc)
+                stats.soc_trips += 1
+                stats.soc_lanes += n_soc
+                soc = _where(soc_go, v_soc(th, fct, resid, state, mu, tau, ctx, ap_max, soc), soc)
+                soc_go = soc_test(soc)
+                pre_code, bt_go = bt_start(soc)
+                soc_h, bt_h = read(stats, soc_go, bt_go)
         (k_soc, soc_code, _cs, _ds, alpha_soc, _thp, theta_soc,
          it_soc, f_soc, c_soc_t, d_soc_t, phi_soc, dir_soc, ad_soc) = soc
         soc_ok = soc_code > 0
@@ -722,57 +755,63 @@ def _build_lane_solve(pnlp, consts, term):
         bt = (ap_max * 0.5, torch.ones((S,), dtype=torch.int64, device=dev), pre_code,
               it_t1, f_t1, c_t1, d_t1, theta_t1, phi_t1)
         while any(bt_h):
-            stats.bt_trips += 1
-            stats.bt_lanes += sum(bt_h)
-            bt = _where(bt_go, v_bt(th, state, dir_, mu, ctx, bt), bt)
-            alpha, count, code = bt[:3]
-            bt_go = live & (code == 0) & (alpha >= min_step) & (count < fn.MAX_LS)
-            (bt_h,) = read(stats, bt_go)
-        alpha_bt, ls_count, bt_code, it_bt, f_bt, c_bt, d_bt, theta_bt, phi_bt = bt
+            with _rec.span("batch.backtrack") as rnd:
+                n_bt = sum(bt_h)
+                rnd.set("lanes", n_bt)
+                stats.bt_trips += 1
+                stats.bt_lanes += n_bt
+                bt = _where(bt_go, v_bt(th, state, dir_, mu, ctx, bt), bt)
+                alpha, count, code = bt[:3]
+                bt_go = live & (code == 0) & (alpha >= min_step) & (count < fn.MAX_LS)
+                (bt_h,) = read(stats, bt_go)
 
-        # the accepted trial: first trial > SOC > backtracking
-        use_soc = soc_ok & (code1 == 0)
-        use_bt = (code1 == 0) & ~soc_ok
-        take1 = code1 > 0
+        with _rec.span("batch.finish"):
+            alpha_bt, ls_count, bt_code, it_bt, f_bt, c_bt, d_bt, theta_bt, phi_bt = bt
 
-        def pick3(x1, xs, xb):
-            return _where(take1, x1, _where(use_soc, xs, xb))
+            # the accepted trial: first trial > SOC > backtracking
+            use_soc = soc_ok & (code1 == 0)
+            use_bt = (code1 == 0) & ~soc_ok
+            take1 = code1 > 0
 
-        it_t = pick3(it_t1, it_soc, it_bt)
-        f_t = pick3(f_t1, f_soc, f_bt)
-        c_t = pick3(c_t1, c_soc_t, c_bt)
-        d_t = pick3(d_t1, d_soc_t, d_bt)
-        theta_t = pick3(theta_t1, theta_soc, theta_bt)
-        phi_t = pick3(phi_t1, phi_soc, phi_bt)
-        alpha_p = pick3(ap_max, alpha_soc, alpha_bt)
-        ls_code = pick3(code1, soc_code, bt_code)
-        dir_p = pick3(dir_, dir_soc, dir_)
-        ad_p = pick3(ad, ad_soc, ad)
-        ls_count = torch.where(use_bt, ls_count, 1)
-        accepted = ls_code > 0
+            def pick3(x1, xs, xb):
+                return _where(take1, x1, _where(use_soc, xs, xb))
 
-        # the filter augmentation decision
-        sw_acc = (grad_phi_dx < 0) & (
-            alpha_p * (-grad_phi_dx) ** s_phi > delta * theta_curr ** s_theta
-        )
-        armijo_acc = phi_t <= phi_curr + eta_phi * alpha_p * grad_phi_dx
-        add1 = (ls_code == 1) & ~(sw_acc & armijo_acc)
-        filter_add = accepted & (add1 | (ls_code == 2))
+            it_t = pick3(it_t1, it_soc, it_bt)
+            f_t = pick3(f_t1, f_soc, f_bt)
+            c_t = pick3(c_t1, c_soc_t, c_bt)
+            d_t = pick3(d_t1, d_soc_t, d_bt)
+            theta_t = pick3(theta_t1, theta_soc, theta_bt)
+            phi_t = pick3(phi_t1, phi_soc, phi_bt)
+            alpha_p = pick3(ap_max, alpha_soc, alpha_bt)
+            ls_code = pick3(code1, soc_code, bt_code)
+            dir_p = pick3(dir_, dir_soc, dir_)
+            ad_p = pick3(ad, ad_soc, ad)
+            ls_count = torch.where(use_bt, ls_count, 1)
+            accepted = ls_code > 0
 
-        # the dual update and safeguard; the old state where the step was
-        # rejected (the solve loop then exits that lane)
-        it_new, g_n, Jc_n, Jd_n = v_finish(th, state, it_t, dir_p, alpha_p, ad_p, mu)
-        new_state = _where(accepted, fn.FusedState(it_new, f_t, c_t, d_t, g_n, Jc_n, Jd_n), state)
-        scal = fn.FusedScalars(
-            f=f, err_nlp=err_nlp, err_log=err_log, nlp_optim=nlp_optim,
-            nlp_feasib=nlp_feasib, theta=theta_curr, phi=phi_curr,
-            alpha_primal=alpha_p, alpha_dual=ad_p, ls_count=ls_count,
-            ls_status=torch.where(accepted, ls_code, 0),
-            use_soc=use_soc & accepted, fact_ok=fct_ok, filter_add=filter_add,
-            theta_add=theta_t, phi_add=phi_t, mp_f32=torch.zeros_like(accepted),
-            delta_w=dw, n_refact=k_reg, ir_primary=torch.zeros_like(k_reg),
-            soc_rounds=k_soc,
-        )
+            # the filter augmentation decision
+            sw_acc = (grad_phi_dx < 0) & (
+                alpha_p * (-grad_phi_dx) ** s_phi > delta * theta_curr ** s_theta
+            )
+            armijo_acc = phi_t <= phi_curr + eta_phi * alpha_p * grad_phi_dx
+            add1 = (ls_code == 1) & ~(sw_acc & armijo_acc)
+            filter_add = accepted & (add1 | (ls_code == 2))
+
+            # the dual update and safeguard; the old state where the step was
+            # rejected (the solve loop then exits that lane)
+            it_new, g_n, Jc_n, Jd_n = v_finish(th, state, it_t, dir_p, alpha_p, ad_p, mu)
+            new_state = _where(accepted, fn.FusedState(it_new, f_t, c_t, d_t, g_n, Jc_n, Jd_n),
+                               state)
+            scal = fn.FusedScalars(
+                f=f, err_nlp=err_nlp, err_log=err_log, nlp_optim=nlp_optim,
+                nlp_feasib=nlp_feasib, theta=theta_curr, phi=phi_curr,
+                alpha_primal=alpha_p, alpha_dual=ad_p, ls_count=ls_count,
+                ls_status=torch.where(accepted, ls_code, 0),
+                use_soc=use_soc & accepted, fact_ok=fct_ok, filter_add=filter_add,
+                theta_add=theta_t, phi_add=phi_t, mp_f32=torch.zeros_like(accepted),
+                delta_w=dw, n_refact=k_reg, ir_primary=torch.zeros_like(k_reg),
+                soc_rounds=k_soc,
+            )
         return new_state, scal, dw_next
 
     # -- the batched solve loop ----------------------------------------------
@@ -795,60 +834,64 @@ def _build_lane_solve(pnlp, consts, term):
         st = torch.zeros((S,), dtype=torch.int64, device=dev)
         state = state0
         while True:
-            live = st == 0
-            out = step(th, state, mu, tau, filt, filt_len, theta_min, dw_last, live, stats)
-            if out is None:
-                break
-            new_state, s, dw_next = out
-            row = torch.stack([v.to(dt) for v in (
-                s.f, s.nlp_feasib, s.nlp_optim, mu, s.alpha_dual, s.alpha_primal,
-                s.ls_count, s.ls_status, s.err_nlp, s.use_soc, s.mp_f32,
-                s.delta_w, s.n_refact, s.ir_primary, s.soc_rounds,
-            )], dim=1)
-            pos = torch.clamp(it_num, max=fn.HIST_CAP - 1)
-            hist[lane, pos] = torch.where(live[:, None], row, hist[lane, pos])
+            with _rec.span("batch.trip") as trip:
+                trip.set("index", stats.trips)
+                live = st == 0
+                out = step(th, state, mu, tau, filt, filt_len, theta_min, dw_last, live, stats,
+                           trip)
+                if out is None:
+                    break
+                with _rec.span("batch.update"):
+                    new_state, s, dw_next = out
+                    row = torch.stack([v.to(dt) for v in (
+                        s.f, s.nlp_feasib, s.nlp_optim, mu, s.alpha_dual, s.alpha_primal,
+                        s.ls_count, s.ls_status, s.err_nlp, s.use_soc, s.mp_f32,
+                        s.delta_w, s.n_refact, s.ir_primary, s.soc_rounds,
+                    )], dim=1)
+                    pos = torch.clamp(it_num, max=fn.HIST_CAP - 1)
+                    hist[lane, pos] = torch.where(live[:, None], row, hist[lane, pos])
 
-            # the termination ladder, in _check_termination's order, then
-            # the needs-host claims 6 and 7
-            err0 = torch.where(live & (it_num == 0), s.err_nlp, err0)
-            acc = s.err_nlp <= accep_tol
-            n_acc = torch.where(acc, n_accep + 1, 0)
-            n_accep = torch.where(live, n_acc, n_accep)
-            code = torch.zeros_like(st)
+                    # the termination ladder, in _check_termination's order, then
+                    # the needs-host claims 6 and 7
+                    err0 = torch.where(live & (it_num == 0), s.err_nlp, err0)
+                    acc = s.err_nlp <= accep_tol
+                    n_acc = torch.where(acc, n_accep + 1, 0)
+                    n_accep = torch.where(live, n_acc, n_accep)
+                    code = torch.zeros_like(st)
 
-            def claim(code, cond, k):
-                return torch.where((code == 0) & cond, k, code)
+                    def claim(code, cond, k):
+                        return torch.where((code == 0) & cond, k, code)
 
-            code = claim(code, s.err_nlp <= eps_tol, 1)
-            if rel_tol > 0:
-                code = claim(code, s.err_nlp <= rel_tol * err0, 2)
-            code = claim(code, acc & (n_acc >= accep_iters), 3)
-            code = claim(code, it_num >= max_iter, 4)
-            code = claim(code, s.nlp_feasib > diverg_tol, 5)
-            code = claim(code, ~s.fact_ok, 6)
-            code = claim(code, s.ls_status == 0, 7)
-            st = torch.where(live, code, st)
-            running = live & (st == 0)
+                    code = claim(code, s.err_nlp <= eps_tol, 1)
+                    if rel_tol > 0:
+                        code = claim(code, s.err_nlp <= rel_tol * err0, 2)
+                    code = claim(code, acc & (n_acc >= accep_iters), 3)
+                    code = claim(code, it_num >= max_iter, 4)
+                    code = claim(code, s.nlp_feasib > diverg_tol, 5)
+                    code = claim(code, ~s.fact_ok, 6)
+                    code = claim(code, s.ls_status == 0, 7)
+                    st = torch.where(live, code, st)
+                    running = live & (st == 0)
 
-            # the mu/tau schedule with the filter reset
-            # (update_log_barrier_params), then the filter augmentation
-            new_mu = torch.clamp(torch.minimum(kappa_mu * mu, mu ** theta_mu), min=0.0)
-            new_mu = torch.clamp(new_mu, min=mu_floor)
-            do_mu = running & (s.err_log <= kappa_eps * mu) & ((new_mu - mu).abs() >= 1e-16)
-            mu = torch.where(do_mu, new_mu, mu)
-            tau = torch.where(do_mu, torch.clamp(1.0 - new_mu, min=tau_min), tau)
-            filt_len = torch.where(do_mu, 1, filt_len)
-            do_add = running & s.filter_add & (filt_len < fn.FILTER_CAP)
-            fpos = torch.clamp(filt_len, max=fn.FILTER_CAP - 1)
-            add_row = torch.stack([s.theta_add, s.phi_add], dim=1).to(dt)
-            filt[lane, fpos] = torch.where(do_add[:, None], add_row, filt[lane, fpos])
-            filt_len = torch.where(do_add, filt_len + 1, filt_len)
+                    # the mu/tau schedule with the filter reset
+                    # (update_log_barrier_params), then the filter augmentation
+                    new_mu = torch.clamp(torch.minimum(kappa_mu * mu, mu ** theta_mu), min=0.0)
+                    new_mu = torch.clamp(new_mu, min=mu_floor)
+                    do_mu = running & (s.err_log <= kappa_eps * mu) & ((new_mu - mu).abs() >= 1e-16)
+                    mu = torch.where(do_mu, new_mu, mu)
+                    tau = torch.where(do_mu, torch.clamp(1.0 - new_mu, min=tau_min), tau)
+                    filt_len = torch.where(do_mu, 1, filt_len)
+                    do_add = running & s.filter_add & (filt_len < fn.FILTER_CAP)
+                    fpos = torch.clamp(filt_len, max=fn.FILTER_CAP - 1)
+                    add_row = torch.stack([s.theta_add, s.phi_add], dim=1).to(dt)
+                    filt[lane, fpos] = torch.where(do_add[:, None], add_row, filt[lane, fpos])
+                    filt_len = torch.where(do_add, filt_len + 1, filt_len)
 
-            # advance only the running lanes: a lane that stops keeps its
-            # pre-step state (the host loop's break-before-assign)
-            state = _where(running, new_state, state)
-            dw_last = torch.where(running, dw_next, dw_last)
-            it_num = torch.where(running, it_num + 1, it_num)
+                    # advance only the running lanes: a lane that stops keeps its
+                    # pre-step state (the host loop's break-before-assign)
+                    state = _where(running, new_state, state)
+                    dw_last = torch.where(running, dw_next, dw_last)
+                    it_num = torch.where(running, it_num + 1, it_num)
         err_nlp = hist[lane, torch.clamp(it_num, max=fn.HIST_CAP - 1), fn.HIST_ERR]
         solve.stats = stats
         return (th, state), mu, it_num, st, err_nlp, hist
@@ -867,11 +910,17 @@ def solve_batched(pnlp, params) -> BatchResult:
     if batched is None:
         batched = build_batched_solve(pnlp)
         pnlp._batched_solve_cache = batched
-    with chol.backend_scope(kernel_backend(pnlp.options.str_("exec_policies"))):
-        state, _mu, it_num, st, err, _hist = batched(params)
-    _th, core = state
-    host = torch.stack([st.to(torch.float64), it_num.to(torch.float64), err,
-                        core.f.to(torch.float64)]).cpu().numpy()
+    with _rec.span("batch.family", request=True) as family:
+        with chol.backend_scope(kernel_backend(pnlp.options.str_("exec_policies"))):
+            state, _mu, it_num, st, err, _hist = batched(params)
+        _th, core = state
+        with _rec.span("batch.results"), _rec.span("host.read"):
+            host = torch.stack([st.to(torch.float64), it_num.to(torch.float64), err,
+                                core.f.to(torch.float64)]).cpu().numpy()
+        if _rec.on:
+            for k, v in dict(S=int(st.shape[0]), n=pnlp.n, m=pnlp.m,
+                             **batched.stats.as_dict()).items():
+                family.set(k, v)
     return BatchResult(
         status=np.asarray(
             [_STATUS_MAP.get(int(s), SolveStatus.Unknown) for s in host[0]], dtype=object,

@@ -17,9 +17,7 @@ class KKTSolveStats:
     def __init__(self) -> None:
         self.tm_total = Timer()
         self.tm_update_init = Timer()       # assembling the KKT operands
-        self.tm_update_linsys = Timer()     # building the (condensed) linear system
         self.tm_update_fact = Timer()       # factorization (incl. regularization retries)
-        self.tm_solve_rhs_manip = Timer()   # compressing/expanding rhs
         self.tm_solve_inner = Timer()       # triangular/inner solves
         self.tm_resid = Timer()             # residual computations for IR
         self.n_iter_refin_inner = 0
@@ -41,26 +39,12 @@ class KKTSolveStats:
         #: device_ldl symbolic analysis refused the pattern and the
         #: strategy fell back to a host backend (filter_ipm)
         self.n_device_ldl_fallback = 0
-        self._cum_fact_s = 0.0
-        self._cum_total_s = 0.0
-
-    def fact_seconds_total(self) -> float:
-        """Whole-solve factorization seconds (per-iteration timers are
-        reset by start_iter; this accumulates across resets)."""
-        return self._cum_fact_s + self.tm_update_fact.elapsed
-
-    def kkt_seconds_total(self) -> float:
-        return self._cum_total_s + self.tm_total.elapsed
 
     def start_iter(self) -> None:
-        self._cum_fact_s += self.tm_update_fact.elapsed
-        self._cum_total_s += self.tm_total.elapsed
         for t in (
             self.tm_total,
             self.tm_update_init,
-            self.tm_update_linsys,
             self.tm_update_fact,
-            self.tm_solve_rhs_manip,
             self.tm_solve_inner,
             self.tm_resid,
         ):
@@ -72,14 +56,12 @@ class KKTSolveStats:
 
     def summary_last_iter(self) -> str:
         return (
-            "KKT: total %.4fs (assembly %.4fs linsys %.4fs fact %.4fs "
-            "rhs %.4fs solve %.4fs resid %.4fs) IR inner/outer %d/%d corrections %d"
+            "KKT: total %.4fs (assembly %.4fs fact %.4fs "
+            "solve %.4fs resid %.4fs) IR inner/outer %d/%d corrections %d"
             % (
                 self.tm_total.elapsed,
                 self.tm_update_init.elapsed,
-                self.tm_update_linsys.elapsed,
                 self.tm_update_fact.elapsed,
-                self.tm_solve_rhs_manip.elapsed,
                 self.tm_solve_inner.elapsed,
                 self.tm_resid.elapsed,
                 self.n_iter_refin_inner,
@@ -94,7 +76,6 @@ class RunStats:
 
     def __init__(self) -> None:
         self.tm_optimize_total = Timer()
-        self.tm_solver_internal = Timer()
         self.tm_starting_point = Timer()
         self.tm_eval_obj = Timer()
         self.tm_eval_grad = Timer()
@@ -118,13 +99,12 @@ class RunStats:
             + self.tm_eval_hess.elapsed
         )
         return (
-            "Total time %.3fs (solver internal %.3fs, evals %.3fs)\n"
+            "Total time %.3fs (evals %.3fs)\n"
             "  evals: obj %d (%.3fs) grad %d (%.3fs) cons %d (%.3fs) "
             "jac %d (%.3fs) hess %d (%.3fs)\n"
             "  iterations: %d"
             % (
                 self.tm_optimize_total.elapsed,
-                self.tm_solver_internal.elapsed,
                 eval_total,
                 self.n_eval_obj,
                 self.tm_eval_obj.elapsed,

@@ -1,14 +1,14 @@
 """Wall-clock timer (parity: hiopTimer, HiOp src/Utils/hiopTimer.hpp:65).
 
-On accelerators a timer must account for async dispatch; ``stop()`` optionally
-synchronizes the device of a CUDA tensor to include device time (the
-reference's CUDA stream syncs play the same role).
+A host clock: on a CUDA device it measures the host's dispatch, not the
+device's work (the solver's spans, :mod:`hiop_tpu_torch.utils.trace`, place
+device operations on the same host timeline through the profiler).
 """
 
 from __future__ import annotations
 
 import time
-from typing import Any, Optional
+from typing import Optional
 
 
 class Timer:
@@ -25,11 +25,7 @@ class Timer:
         self._t0 = time.perf_counter()
         return self
 
-    def stop(self, sync: Any = None) -> "Timer":
-        if getattr(sync, "is_cuda", False):
-            import torch
-
-            torch.cuda.synchronize(sync.device)
+    def stop(self) -> "Timer":
         if self._t0 is not None:
             self._acc += time.perf_counter() - self._t0
             self._t0 = None

@@ -21,10 +21,14 @@ package reaches under those perturbations, to the objective and to x.
 
 Also: the batched plain factorizations against the single-matrix ones, one
 batched factorization per loop trip, one host read per loop trip for the
-whole batch, and the reuse of the built solve.
+whole batch, the reuse of the built solve, and the solver's spans (the
+tree, the family's counters, nothing recorded and no bit changed when off,
+self time, the Chrome export).
 
 Every ``hiop_tpu`` reference runs once, in a module-scoped fixture.
 """
+
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -451,3 +455,152 @@ def test_acopf_contingencies_b16_match_jax(jax_acopf):
             x0_of_th=lambda _th, xs=torch.from_numpy(x0 * s): xs)
         pert = _port_run(tps, _take(th, 2))
         assert pert["st"][0] == port["st"][2] and pert["it"][0] == port["it"][2]
+
+
+# ---------------------------------------------------------------------------
+# the solver's spans (hiop_tpu_torch.utils.trace), on while kernels.stats.timing
+# ---------------------------------------------------------------------------
+#: where each span may sit: its parent's name (None: a root)
+SPAN_PARENTS = {
+    "batch.family": {None},
+    "batch.init": {"batch.family"}, "batch.trip": {"batch.family"},
+    "batch.results": {"batch.family"},
+    **{p: {"batch.trip"} for p in ("batch.residual", "batch.factor", "batch.ladder",
+                                    "batch.direction", "batch.soc", "batch.backtrack",
+                                    "batch.finish", "batch.update")},
+    "kkt.factor": {"batch.factor", "batch.ladder"},
+    "kkt.solve": {"batch.direction", "batch.soc"},
+    "host.read": {"batch.factor", "batch.ladder", "batch.direction", "batch.soc",
+                  "batch.backtrack", "batch.results"},
+}
+NLP_CALLERS = {"batch.init", "batch.residual", "batch.direction", "batch.soc",
+               "batch.backtrack", "batch.finish"}
+
+
+@pytest.fixture(scope="module", params=["shifted_b3", "acopf_b8"])
+def traced(request):
+    """One family solved through solve_batched with the spans on, and
+    again by _port_run with them off."""
+    from hiop_tpu_torch.linalg import kernels
+    from hiop_tpu_torch.utils.trace import recorder
+
+    if request.param == "shifted_b3":
+        tp, th = _port_shifted(), SHIFTS
+    else:
+        tp, th = _port_acopf(8)
+    recorder.clear()
+    kernels.stats.timing = True
+    try:
+        res = tbs.solve_batched(tp, th)
+    finally:
+        kernels.stats.timing = False
+    spans, dropped = list(recorder.spans), recorder.dropped
+    recorder.clear()
+    off = _port_run(tp, th)
+    off_spans = len(recorder.spans)
+    return dict(res=res, stats=tp._batched_solve_cache.stats, spans=spans, dropped=dropped,
+                off=off, off_spans=off_spans, S=len(res.status), n=tp.n, m=tp.m)
+
+
+def _kids(spans):
+    kids = {}
+    for s in spans:
+        kids.setdefault(s.parent, []).append(s)
+    return kids
+
+
+def test_batched_spans_form_the_solve_tree(traced):
+    """One family root; init, a trip per step (the last, empty one too) and
+    the results under it; the phases under the trips; hooks, KKT calls and
+    reads under the phase that made them."""
+    spans, st = traced["spans"], traced["stats"]
+    assert traced["dropped"] == 0 and all(s.end is not None for s in spans)
+    by_id = {s.id: s for s in spans}
+    (root,) = [s for s in spans if s.parent is None]
+    assert root.name == "batch.family"
+    for s in spans:
+        assert s.family == root.id
+        parent = None if s.parent is None else by_id[s.parent].name
+        allowed = NLP_CALLERS if s.name.startswith("nlp.") else SPAN_PARENTS[s.name]
+        assert parent in allowed, (s.name, parent)
+        if s.parent is not None:
+            p = by_id[s.parent]
+            assert p.start <= s.start <= s.end <= p.end
+    kids = _kids(spans)
+    top = [s.name for s in kids[root.id]]
+    assert top == ["batch.init"] + ["batch.trip"] * (st.trips + 1) + ["batch.results"]
+    trips = kids[root.id][1:-1]
+    assert [t.attrs["index"] for t in trips] == list(range(st.trips + 1))
+    assert trips[-1].attrs["live"] == 0
+    assert [s.name for s in kids[trips[-1].id]] == ["batch.residual", "batch.factor"]
+    assert sum(t.attrs["live"] for t in trips) == st.lanes_live
+    names = Counter(s.name for s in spans)
+    assert names["kkt.factor"] == st.trips + 1 + st.ladder_trips
+    for name, rounds, lanes in (("batch.ladder", st.ladder_trips, st.ladder_lanes),
+                                ("batch.soc", st.soc_trips, st.soc_lanes),
+                                ("batch.backtrack", st.bt_trips, st.bt_lanes)):
+        assert names[name] == rounds
+        assert sum(s.attrs["lanes"] for s in spans if s.name == name) == lanes
+    assert {n for n in names if n.startswith("nlp.")} >= {
+        "nlp.starting_point", "nlp.eval_f", "nlp.eval_cons", "nlp.eval_jac",
+        "nlp.eval_grad_f", "nlp.eval_hess_blocks"}
+
+
+def test_batched_family_span_carries_the_batch_stats(traced):
+    """The family span's counters are BatchStats; one host.read span per
+    read of the loop, and one for the results' copy."""
+    spans, st = traced["spans"], traced["stats"]
+    (root,) = [s for s in spans if s.name == "batch.family"]
+    assert root.attrs == dict(st.as_dict(), S=traced["S"], n=traced["n"], m=traced["m"])
+    assert sum(s.name == "host.read" for s in spans) == st.reads + 1
+
+
+def test_batched_spans_off_record_nothing_and_change_no_bit(traced):
+    res, off = traced["res"], traced["off"]
+    assert traced["off_spans"] == 0
+    assert [tbs._STATUS_MAP[int(c)] for c in off["st"]] == list(res.status)
+    assert np.array_equal(off["it"], res.iterations)
+    assert np.array_equal(off["obj"], res.obj)
+    assert torch.equal(torch.from_numpy(off["x"]), res.x)
+
+
+def test_span_self_time_is_duration_less_children_cover(traced):
+    from hiop_tpu_torch.utils.trace import Recorder, Span, self_ns
+
+    kids = _kids(traced["spans"])
+    for s in traced["spans"]:
+        # the solver's children follow one another
+        assert self_ns(s, kids.get(s.id, [])) == s.duration - sum(
+            k.duration for k in kids.get(s.id, []))
+    rec = Recorder()
+
+    def at(start, end):
+        s = Span(rec, "x", 0, None, None)
+        s.start, s.end = start, end
+        return s
+
+    # overlapping children, and one reaching past the parent's end
+    assert self_ns(at(0, 100), [at(10, 30), at(20, 40), at(90, 120)]) == 100 - 30 - 10
+    assert self_ns(at(0, 100), []) == 100
+
+
+def test_export_chrome_writes_one_event_per_span(traced, tmp_path):
+    import json
+
+    from hiop_tpu_torch.utils.trace import Recorder
+
+    rec = Recorder()
+    rec.spans = traced["spans"]
+    path = tmp_path / "spans.json"
+    assert rec.export_chrome(path) == len(traced["spans"])
+    doc = json.loads(path.read_text())
+    ev = doc["traceEvents"]
+    assert len(ev) == len(traced["spans"]) and {e["ph"] for e in ev} == {"X"}
+    first = traced["spans"][0]
+    assert ev[0]["name"] == first.name and ev[0]["ts"] == first.start / 1e3
+    assert ev[0]["args"]["family"] == first.family
+    # beside a profiler trace: its time base
+    base = tmp_path / "profiler.json"
+    base.write_text(json.dumps({"baseTimeNanoseconds": first.start, "traceEvents": []}))
+    rec.export_chrome(path, beside=base)
+    assert json.loads(path.read_text())["traceEvents"][0]["ts"] == 0.0
