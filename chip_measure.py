@@ -56,6 +56,17 @@ JSON object per line:
   objective to 1e-8), and the allreduce ladder. One rank per card over
   NCCL with two cards or more; two ranks share one card over gloo.
 
+- ``saddle``: the screening cell's MDS saddle (the contingency family
+  B=``SADDLE_B`` x ``SADDLE_S`` lanes at its first iterate, f64) factored by
+  one batched ``ldl_nopiv`` factorization and solved once, on the dense
+  route (``factorize_saddle_device``: dense J_s, GEMM) and on the triplet
+  route (``factorize_saddle_triplets``), as the batched solve calls them:
+  ms per factorization and per solve (CUDA events, warm), peak memory,
+  the device kernels of one factorization of each (``torch.profiler``),
+  the host seconds to build the triplet structure, the routes' agreement
+  (saddle M, ``ok``, pivot-sign inertia, directions) and whether the
+  triplet route repeats its bits.
+
 ``python3 chip_measure.py RUN ...`` runs only the named runs (default:
 all, in the order above).
 
@@ -271,7 +282,8 @@ def mp_run(torch, K, acopf_mds) -> dict:
         sizes={f"{k[0]}:{k[1]}:{k[2]}": v for k, v in K.stats.sizes.items()})
 
 
-RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp", "dense", "pridec", "dist")
+RUNS = ("ladder", "ldl_only", "host_lu_eig", "b32_host_tier", "profile", "mp", "dense", "pridec", "dist",
+        "saddle")
 
 #: the ``dist`` run: size and iteration cap of the large QN solve, and the
 #: ACOPF size of its parity cases (tests/test_multiprocess.py:70)
@@ -336,6 +348,8 @@ def main() -> int:
         pridec_run(torch, K, card)
     if "dist" in runs:
         dist_run(torch, K, card)
+    if "saddle" in runs:
+        saddle_run(torch, card)
     return 0
 
 
@@ -641,6 +655,127 @@ def profile_run(torch, K, acopf_mds, card) -> None:
         "idle_share": 1.0 - busy_ms / (run["wall_s"] * 1e3),
         "top": [{"kernel": k[:90], "launches": n, "ms": us / 1e3} for k, (n, us) in top]},
         "card": card}), flush=True)
+
+
+#: the ``saddle`` run: the screening cell's grid and lanes, and the timed
+#: calls of each route
+SADDLE_B = 256
+SADDLE_S = 32
+SADDLE_REPS = 10
+
+
+def _rel(a, b) -> float:
+    """The largest per-lane difference over the lane's largest entry."""
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    return float(((a - b).abs().amax(-1) / a.abs().amax(-1).clamp(min=1e-300)).max())
+
+
+def saddle_run(torch, card) -> None:
+    from torch.autograd import DeviceType
+    from torch.func import vmap
+    from torch.profiler import ProfilerActivity, profile
+
+    from hiop_tpu_torch.examples import acopf_mds
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+    from hiop_tpu_torch.optimization import batch_solve as bs
+    from hiop_tpu_torch.optimization import residual as res_mod
+
+    prob = acopf_mds.AcopfContingencyMds(SADDLE_B)
+    pnlp = bs.ParametricMdsNlp(prob, prob.th0(), acopf_mds.contingency_options())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    js = kkt_mds.js_triplets(pnlp)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    lines = acopf_mds.contingency_lines(SADDLE_B, SADDLE_S)
+    params = bs.tree_on(prob.contingency_params(lines), pnlp.device)
+    state, _, _ = bs._build_init(pnlp)(params)
+    it, Jc, Jd = state.it, state.Jc, state.Jd
+    Dx, Dd = vmap(lambda i: res_mod.barrier_diagonals(i, pnlp.bounds))(it)
+    hss, Hdd = vmap(lambda x, yc, yd, p: pnlp.eval_hess_blocks(x, 1.0, yc, yd, p))(
+        it.x, it.yc, it.yd, params)
+    ns, S = pnlp.n_sparse, SADDLE_S
+    dw = torch.full((S,), 1e-4, dtype=torch.float64, device=pnlp.device)
+    dc = torch.full((S,), 1e-8, dtype=torch.float64, device=pnlp.device)
+    g = torch.Generator(device=pnlp.device).manual_seed(0)
+    rhs = [torch.randn((S, k), generator=g, dtype=torch.float64, device=pnlp.device)
+           for k in (ns, pnlp.n - ns, pnlp.m_ineq, pnlp.m_eq, pnlp.m_ineq)]
+
+    # each route as the batched solve's factor() and solve_dir() call it
+    def dense_factor(hss, Hdd, Dx, Dd, Jc, Jd, dw, dc):
+        return kkt_mds.factorize_saddle_device(
+            hss, Hdd, Dx[:ns], Dx[ns:], Dd, Jc[:, :ns], Jc[:, ns:], Jd[:, :ns], Jd[:, ns:],
+            dw, dw, dc, dc)
+
+    def triplet_factor(hss, Hdd, Dx, Dd, Jc, Jd, dw, dc):
+        return kkt_mds.factorize_saddle_triplets(
+            hss, Hdd, Dx[:ns], Dx[ns:], Dd, Jc[:, ns:], Jd[:, ns:],
+            kkt_mds.js_values(Jc, Jd, js), js, dw, dw, dc, dc)
+
+    routes = {
+        "dense": (vmap(dense_factor), vmap(kkt_mds.solve_saddle_device)),
+        "triplet": (vmap(triplet_factor),
+                    vmap(lambda f, *r: kkt_mds.solve_saddle_device(f, *r, js=js))),
+    }
+    args = (hss, Hdd, Dx, Dd, Jc, Jd, dw, dc)
+    out: dict = {"S": S, "n": pnlp.n, "m": pnlp.m, "n_sparse": ns, "nnz": int(js.rows.numel()),
+                 "pairs": int(js.pa.numel()), "c_entries": int(js.c_flat.numel()),
+                 "triplet_build_s": build_s}
+    facts, dirs = {}, {}
+    for name, (fact, solve) in routes.items():
+        for _ in range(2):
+            f = fact(*args)
+            d = solve(f, *rhs)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        ev[0].record()
+        for _ in range(SADDLE_REPS):
+            f = fact(*args)
+        ev[1].record()
+        for _ in range(SADDLE_REPS):
+            d = solve(f, *rhs)
+        ev[2].record()
+        torch.cuda.synchronize()
+        fact_ms = ev[0].elapsed_time(ev[1]) / SADDLE_REPS
+        solve_ms = ev[1].elapsed_time(ev[2]) / SADDLE_REPS
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        out[name] = {"factor_ms": fact_ms, "solve_ms": solve_ms,
+                     "factor_plus_solve_ms": fact_ms + solve_ms, "peak_extra_gib": peak}
+        for part, call in (("factor", lambda: fact(*args)), ("solve", lambda: solve(f, *rhs))):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                call()
+                torch.cuda.synchronize()
+            kern: dict = {}
+            for e in prof.events():
+                if e.device_type == DeviceType.CUDA:
+                    n, us = kern.get(e.name, (0, 0.0))
+                    kern[e.name] = (n + 1, us + e.time_range.elapsed_us())
+            top = sorted(kern.items(), key=lambda kv: -kv[1][1])[:10]
+            out[name][part + "_kernels_ms"] = sum(us for _, us in kern.values()) / 1e3
+            out[name][part + "_top"] = [{"kernel": k[:90], "launches": n, "ms": us / 1e3}
+                                        for k, (n, us) in top]
+        facts[name], dirs[name] = f, d
+    M_d = vmap(lambda *a: kkt_mds._dense_saddle(*a)[-1])(
+        hss, Hdd, Dx[:, :ns], Dx[:, ns:], Dd, Jc[..., :ns], Jc[..., ns:], Jd[..., :ns], Jd[..., ns:],
+        dw, dw, dc, dc)
+    M_t = vmap(lambda hss, Hdd, Dx, Dd, Jc, Jd, dw, dc: kkt_mds._triplet_saddle(
+        hss, Hdd, Dx[:ns], Dx[ns:], Dd, Jc[:, ns:], Jd[:, ns:], kkt_mds.js_values(Jc, Jd, js), js,
+        dw, dw, dc, dc)[-1])(*args)
+    fd, ft = facts["dense"], facts["triplet"]
+    again = routes["triplet"][0](*args)
+    out["agree"] = {
+        "M_rel": _rel(M_d, M_t),
+        "ok_equal": bool(torch.equal(fd.ok, ft.ok)), "lanes_ok": int(ft.ok.sum()),
+        "inertia_equal": bool(torch.equal((fd.d < 0).sum(-1), (ft.d < 0).sum(-1))),
+        "direction_rel": [_rel(a, b) for a, b in zip(dirs["dense"], dirs["triplet"]) if a.shape[-1]],
+        "triplet_repeats_bits": bool(torch.equal(again.L, ft.L) and torch.equal(again.d, ft.d)
+                                     and torch.equal(again.s, ft.s)),
+    }
+    out["speedup_factor_plus_solve"] = (out["dense"]["factor_plus_solve_ms"]
+                                        / out["triplet"]["factor_plus_solve_ms"])
+    print(json.dumps({"saddle": out, "card": card}), flush=True)
 
 
 if __name__ == "__main__":

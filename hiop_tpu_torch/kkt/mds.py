@@ -32,7 +32,15 @@ the same quick and device safe tiers in f32. The device saddle family
 FGMRES escalation) keeps every factor field a tensor and folds the inertia
 acceptance into ``ok``; the fused modes
 (:mod:`hiop_tpu_torch.optimization.fused_newton`) call it, as
-``hiop_tpu``'s fused program does.
+``hiop_tpu``'s fused program does. Its f64 saddle has two routes to
+C = J_s K_s^-1 J_s^T: :func:`factorize_saddle_device` forms the dense J_s and
+a GEMM over it; :func:`factorize_saddle_triplets` sums the same products
+over J_s's same-column nonzero pairs (:class:`JsTriplets`) and reads J_s in
+its solves through the nonzeros alone. The lane-batched solve
+(:mod:`hiop_tpu_torch.optimization.batch_solve`) takes the triplet route
+whenever :func:`js_triplets` gives a structure: no duplicate entries, and
+pairs far fewer than the dense product's multiply-adds
+(``TRIPLET_SHARE``); the fused modes keep the dense route.
 """
 
 from __future__ import annotations
@@ -246,8 +254,9 @@ def _diag_c(mc, dd_inv, delta_cc, delta_cd):
     return torch.cat([_full(mc, delta_cc, dd_inv), dd_inv + delta_cd])
 
 
-def _saddle(Kd, Jdn, C):
-    return torch.cat([torch.cat([Kd, Jdn.T], dim=1), torch.cat([Jdn, -C], dim=1)], dim=0)
+def _saddle(Kd, Jdn, neg_c):
+    """[[K_d, J_dn^T], [J_dn, -C]] from ``neg_c`` = -C."""
+    return torch.cat([torch.cat([Kd, Jdn.T], dim=1), torch.cat([Jdn, neg_c], dim=1)], dim=0)
 
 
 def _dense_saddle(hss, Hdd, Dxs, Dxd, Dd, Jc_s, Jc_d, Jd_s, Jd_d,
@@ -267,23 +276,39 @@ def _dense_saddle(hss, Hdd, Dxs, Dxd, Dd, Jc_s, Jc_d, Jd_s, Jd_d,
     else:
         JKJt = (Js * ks_inv) @ Js.T
     C = JKJt + torch.diag(_diag_c(mc, _pos_inv(dd_tot), delta_cc, delta_cd))
-    return ks, ks_inv, Js, Jdn, dd_tot, _saddle(Kd, Jdn, C)
+    return ks, ks_inv, Js, Jdn, dd_tot, _saddle(Kd, Jdn, -C)
 
 
-def _saddle_rhs(f, rxs_t, rxd_t, rd_t, ryc, ryd):
+def _js_mv(f, u, js):
+    """J_s u: through the factors' dense ``Js``, or, given the structure
+    ``js`` (:class:`JsTriplets`), through their ``js_vals``."""
+    if js is None:
+        return f.Js @ u
+    return _seg_sum(f.js_vals * u[js.cols], js.row_nz)
+
+
+def _jst_mv(f, v, js):
+    """J_s^T v, as :func:`_js_mv`."""
+    if js is None:
+        return f.Js.T @ v
+    return _seg_sum(f.js_vals * v[js.rows], js.col_nz)
+
+
+def _saddle_rhs(f, rxs_t, rxd_t, rd_t, ryc, ryd, js=None):
     """The saddle's right-hand side [rx_d; [ryc; ryd + Dd^-1 rd] - J_s K_s^-1
-    rx_s] and Dd^-1, for factors with fields ``Js``, ``ks_inv``, ``dd_tot``."""
+    rx_s] and Dd^-1, for factors with fields ``ks_inv``, ``dd_tot`` and
+    ``Js`` (or ``js_vals`` with ``js``)."""
     dd_inv = _pos_inv(f.dd_tot)
-    rhs_y = torch.cat([ryc, ryd + dd_inv * rd_t]) - f.Js @ (f.ks_inv * rxs_t)
+    rhs_y = torch.cat([ryc, ryd + dd_inv * rd_t]) - _js_mv(f, f.ks_inv * rxs_t, js)
     return torch.cat([rxd_t, rhs_y]), dd_inv
 
 
-def _saddle_direction(f, sol, nd: int, mc: int, rxs_t, rd_t, dd_inv):
+def _saddle_direction(f, sol, nd: int, mc: int, rxs_t, rd_t, dd_inv, js=None):
     """(dxs, dxd, dd, dyc, dyd) from the saddle's solution [dx_d; dy]."""
     dxd = sol[:nd]
     dy = sol[nd:]
     dyc, dyd = dy[:mc], dy[mc:]
-    dxs = f.ks_inv * (rxs_t - f.Js.T @ dy)
+    dxs = f.ks_inv * (rxs_t - _jst_mv(f, dy, js))
     dd = dd_inv * (rd_t + dyd)
     return dxs, dxd, dd, dyc, dyd
 
@@ -386,22 +411,177 @@ def factorize_saddle_device(
         hss, Hdd, Dxs, Dxd, Dd, Jc_s, Jc_d, Jd_s, Jd_d,
         delta_wx, delta_wd, delta_cc, delta_cd,
     )
+    f, s, ok = _ldl_saddle(ks, M, m)
+    return MdsSaddleDeviceFactors(f.L, f.d, s, ks_inv, Js, Jdn, dd_tot, ok)
+
+
+def _ldl_saddle(ks, M, m: int):
+    """The no-pivot LDL^T of the equilibrated saddle s M s: (factors, s, ok),
+    ``ok`` the finite factorization AND n_neg(saddle) + n_neg(K_s) == m."""
     ks_ok, n_neg_ks = _ks_inertia(ks)
     s, _ = _row_max_scale(M, 1e-300)
     f = _ldl.ldl_factor(s[:, None] * M * s[None, :])
-    ok = f.ok & ks_ok & (f.n_neg + n_neg_ks == m)
-    return MdsSaddleDeviceFactors(f.L, f.d, s, ks_inv, Js, Jdn, dd_tot, ok)
+    return f, s, f.ok & ks_ok & (f.n_neg + n_neg_ks == m)
 
 
 def _ldl_of(f, n):
     return _ldl.LdlFactors(f.L, f.d, n, f.d.new_zeros((), dtype=torch.int64), f.ok)
 
 
-def solve_saddle_device(f: MdsSaddleDeviceFactors, rxs_t, rxd_t, rd_t, ryc, ryd):
-    """Direction recovery for :func:`factorize_saddle_device`."""
-    rhs, dd_inv = _saddle_rhs(f, rxs_t, rxd_t, rd_t, ryc, ryd)
+def solve_saddle_device(f, rxs_t, rxd_t, rd_t, ryc, ryd, js=None):
+    """Direction recovery for :func:`factorize_saddle_device`, or, given
+    the structure ``js``, for :func:`factorize_saddle_triplets`: J_s then
+    enters the right-hand side and the x_s back-substitution through its
+    triplets."""
+    rhs, dd_inv = _saddle_rhs(f, rxs_t, rxd_t, rd_t, ryc, ryd, js)
     sol = f.s * _ldl.ldl_solve(_ldl_of(f, rhs.shape[0]), f.s * rhs)
-    return _saddle_direction(f, sol, rxd_t.shape[0], ryc.shape[0], rxs_t, rd_t, dd_inv)
+    return _saddle_direction(f, sol, rxd_t.shape[0], ryc.shape[0], rxs_t, rd_t, dd_inv, js)
+
+
+# ---------------------------------------------------------------------------
+# the triplet route of the device saddle: J_s only through its nonzeros
+# ---------------------------------------------------------------------------
+#: The triplet route is taken when the same-column pairs number at most
+#: this share of the dense product's m * m * n_s multiply-adds: a pair costs
+#: a few gathered loads where the GEMM spends one tensor-core multiply-add.
+TRIPLET_SHARE = 1e-2
+
+
+class JsTriplets(NamedTuple):
+    """The sparse block J_s = [Jc_s; Jd_s] of an MDS formulation as
+    triplets, with fixed-shape index plans for the triplet route
+    (:func:`factorize_saddle_triplets`). Each sum it forms is a gather into
+    a padded (targets, k) array and a sum over its last axis: the order of
+    summation is fixed at build time, and a call neither sorts nor adds
+    atomically. Every lane of a family shares it; an index equal to the
+    length of the gathered vector reads a zero."""
+    eq_rc: tuple           # (rows, cols) of the nonzeros in Jc
+    in_rc: tuple           # (rows, cols) of the nonzeros in Jd
+    rows: torch.Tensor     # (nnz,) stacked row of each nonzero, [eq; m_eq + ineq]
+    cols: torch.Tensor     # (nnz,) its column
+    pa: torch.Tensor       # (P,) same-column pairs of nonzeros (a, b) and
+    pb: torch.Tensor       #      their column, as :func:`build_schur_pairs`
+    pvar: torch.Tensor
+    c_pairs: torch.Tensor  # (T, k) the pairs summed into each entry C holds
+    c_diag: torch.Tensor   # (T,) the entry's row if on the diagonal, else m
+    c_flat: torch.Tensor   # (T,) its position row * m + col in C
+    row_nz: torch.Tensor   # (m, k) the nonzeros of each row
+    col_nz: torch.Tensor   # (n_s, k) the nonzeros of each column
+
+
+def _padded_groups(keys, n_keys: int) -> np.ndarray:
+    """(n_keys, k): row j lists, ascending, the positions i with keys[i] == j,
+    padded with len(keys)."""
+    counts = np.bincount(keys, minlength=n_keys)
+    order = np.argsort(keys, kind="stable")
+    starts = np.cumsum(counts) - counts
+    slot = np.arange(keys.size) - np.repeat(starts, counts)
+    out = np.full((n_keys, max(int(counts.max(initial=0)), 1)), keys.size, dtype=np.int64)
+    out[keys[order], slot] = order
+    return out
+
+
+def _seg_sum(vals, groups):
+    """The sum of ``vals`` over each row of ``groups`` (:func:`_padded_groups`)."""
+    return torch.cat([vals, vals.new_zeros((1,))])[groups].sum(-1)
+
+
+def stacked_js(nlp):
+    """(rows, cols) of J_s's nonzeros in the stacked [eq; m_eq + ineq] row
+    order, as int64 numpy arrays."""
+    rows = np.concatenate([
+        np.asarray(nlp.jac_sp_eq_rows, dtype=np.int64),
+        nlp.m_eq + np.asarray(nlp.jac_sp_in_rows, dtype=np.int64),
+    ])
+    cols = np.concatenate([
+        np.asarray(nlp.jac_sp_eq_cols, dtype=np.int64),
+        np.asarray(nlp.jac_sp_in_cols, dtype=np.int64),
+    ])
+    return rows, cols
+
+
+def js_triplets(nlp):
+    """The :class:`JsTriplets` of an NlpMDS formulation on its device, or
+    None where the dense product is the route: :func:`build_schur_pairs`
+    declines (duplicate entries, no pairs), or the pairs exceed
+    ``TRIPLET_SHARE`` of the product's multiply-adds."""
+    rows, cols = stacked_js(nlp)
+    m, ns = nlp.m, nlp.n_sparse
+    pairs = build_schur_pairs(rows, cols, ns)
+    if pairs is None or pairs[0].numel() > TRIPLET_SHARE * m * m * ns:
+        return None
+    pa, pb, pvar, prow, pcol = (p.numpy() for p in pairs)
+    # the entries of C: every pair's target, and the whole diagonal
+    flat = np.unique(np.concatenate([prow * m + pcol, np.arange(m) * (m + 1)]))
+    diag = np.where(flat // m == flat % m, flat // m, m)
+    c_pairs = _padded_groups(np.searchsorted(flat, prow * m + pcol), flat.size)
+    dev = nlp.device
+
+    def on(a):
+        return torch.as_tensor(a, device=dev)
+
+    return JsTriplets(
+        nlp._jac_eq_rc_t, nlp._jac_in_rc_t, on(rows), on(cols), on(pa), on(pb), on(pvar),
+        on(c_pairs), on(diag), on(flat), on(_padded_groups(rows, m)),
+        on(_padded_groups(cols, ns)),
+    )
+
+
+def js_values(Jc, Jd, js: JsTriplets):
+    """J_s's nonzeros in the order of ``js``, read from the dense Jacobian
+    blocks (sparse columns first)."""
+    return torch.cat([Jc[js.eq_rc], Jd[js.in_rc]])
+
+
+def _triplet_saddle(hss, Hdd, Dxs, Dxd, Dd, Jc_d, Jd_d, js_vals, js: JsTriplets,
+                    delta_wx, delta_wd, delta_cc, delta_cd):
+    """:func:`_dense_saddle` with C assembled from J_s's triplets: (ks,
+    ks_inv, Jdn, dd_tot, M). Each entry of C sums the dense route's
+    products (J_s[r, c] K_s^-1[c]) J_s[r', c] over the columns where both
+    are nonzero, then adds the diagonal; J_s itself is never dense."""
+    mc = Jc_d.shape[0]
+    m = mc + Jd_d.shape[0]
+    ks = hss + Dxs + delta_wx
+    ks_inv = _signed_inv(ks)
+    Jdn = torch.cat([Jc_d, Jd_d], dim=0)
+    dd_tot = Dd + delta_wd
+    Kd = Hdd + torch.diag(Dxd + delta_wx)
+    prod = js_vals[js.pa] * ks_inv[js.pvar] * js_vals[js.pb]
+    diag_c = _diag_c(mc, _pos_inv(dd_tot), delta_cc, delta_cd)
+    c_vals = _seg_sum(prod, js.c_pairs) + torch.cat([diag_c, diag_c.new_zeros((1,))])[js.c_diag]
+    neg_c = js_vals.new_zeros((m * m,)).index_put((js.c_flat,), -c_vals).reshape(m, m)
+    return ks, ks_inv, Jdn, dd_tot, _saddle(Kd, Jdn, neg_c)
+
+
+class MdsSaddleTripletFactors(NamedTuple):
+    """:class:`MdsSaddleDeviceFactors` of the triplet route: J_s's nonzeros
+    in place of the dense ``Js``."""
+    L: torch.Tensor
+    d: torch.Tensor
+    s: torch.Tensor
+    ks_inv: torch.Tensor
+    js_vals: torch.Tensor  # (nnz,) in the order of the JsTriplets
+    Jdn: torch.Tensor
+    dd_tot: torch.Tensor
+    ok: torch.Tensor
+
+
+def factorize_saddle_triplets(
+    hss, Hdd, Dxs, Dxd, Dd, Jc_d, Jd_d, js_vals, js: JsTriplets,
+    delta_wx, delta_wd, delta_cc, delta_cd,
+) -> MdsSaddleTripletFactors:
+    """:func:`factorize_saddle_device` with J_s K_s^-1 J_s^T assembled from
+    the triplets (:func:`_triplet_saddle`): the same saddle M up to the
+    order of summation, the same equilibration, LDL^T and inertia test, and
+    no dense J_s, no copy of it and no GEMM over it."""
+    m = Jc_d.shape[0] + Jd_d.shape[0]
+    ks, ks_inv, Jdn, dd_tot, M = _triplet_saddle(
+        hss, Hdd, Dxs, Dxd, Dd, Jc_d, Jd_d, js_vals, js,
+        delta_wx, delta_wd, delta_cc, delta_cd,
+    )
+    f, s, ok = _ldl_saddle(ks, M, m)
+    return MdsSaddleTripletFactors(f.L, f.d, s, ks_inv, js_vals, Jdn, dd_tot, ok)
+
 
 
 class MdsSaddleDeviceMpFactors(NamedTuple):
@@ -519,14 +699,7 @@ def mds_js_struct(nlp):
     cached = getattr(nlp, "_js_struct_cache", "miss")
     if cached != "miss":
         return cached
-    sr = np.concatenate([
-        np.asarray(nlp.jac_sp_eq_rows, dtype=np.int64),
-        nlp.m_eq + np.asarray(nlp.jac_sp_in_rows, dtype=np.int64),
-    ])
-    sc = np.concatenate([
-        np.asarray(nlp.jac_sp_eq_cols, dtype=np.int64),
-        np.asarray(nlp.jac_sp_in_cols, dtype=np.int64),
-    ])
+    sr, sc = stacked_js(nlp)
     pairs = build_schur_pairs(sr, sc, nlp.n_sparse, device=nlp.device)
     out = None
     if pairs is not None:
@@ -590,7 +763,7 @@ def factorize_saddle_device_mp_op(
     prod32 = (js_vals[pa] * js_vals[pb] * ks_inv[pvar]).to(f32)
     flat = torch.zeros((m * m,), dtype=f32, device=Hdd.device)
     C32 = scatter_add_(flat, prow * m + pcol, prod32).reshape(m, m) + torch.diag(diagC.to(f32))
-    Ms = _saddle(Kd.to(f32), Jdn.to(f32), C32)
+    Ms = _saddle(Kd.to(f32), Jdn.to(f32), -C32)
     s32, rmax = _row_max_scale(Ms, 1e-30)
     f = _ldl.ldl_factor(s32[:, None] * Ms * s32[None, :])
     ok = f.ok & ks_ok

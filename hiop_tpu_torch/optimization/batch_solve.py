@@ -27,6 +27,17 @@ and its length, the iteration counter, the status and the history):
   per trip for the whole batch; a lane whose test is false is held with
   ``torch.where``. There is no Python loop over lanes.
 
+An MDS family on the ``ldl_nopiv`` ladder assembles its saddle's
+J_s K_s^-1 J_s^T from the sparse block's triplets
+(:func:`~hiop_tpu_torch.kkt.mds.factorize_saddle_triplets`) and reads J_s in
+its solves through the nonzeros alone, whenever the structure gives
+triplets (:func:`~hiop_tpu_torch.kkt.mds.js_triplets`: no duplicate entry,
+and same-column pairs far fewer than the dense product's multiply-adds);
+the structure is built once per family, since an outage moves values, not
+the pattern. Otherwise the saddle takes the dense J_s and a GEMM
+(:func:`~hiop_tpu_torch.kkt.mds.factorize_saddle_device`).
+:class:`BatchStats` counts the factorizations of the triplet route.
+
 The branches are those ``build_batched_solve`` reaches in ``hiop_tpu``:
 mode ``newton`` with ``fused_ldl`` and without ``fused_mp`` in the
 constants, i.e. the dense quick Cholesky ladder on K, the MDS quick ladder
@@ -313,6 +324,7 @@ class BatchStats:
         self.soc_lanes = 0
         self.bt_trips = 0
         self.bt_lanes = 0
+        self.triplet_factors = 0  # batched factorizations with C from J_s's triplets
 
     def as_dict(self) -> dict:
         return dict(vars(self))
@@ -482,6 +494,9 @@ def _build_lane_solve(pnlp, consts, term):
     is_mds = isinstance(pnlp, NlpMDS)
     ns = pnlp.n_sparse if is_mds else 0
     use_ldl = bool(consts.get("fused_ldl", False)) and is_mds
+    # the ldl_nopiv saddle's J_s K_s^-1 J_s^T from J_s's triplets where its
+    # structure allows (shared by every lane: an outage moves values only)
+    js = kkt_mds.js_triplets(pnlp) if use_ldl else None
 
     delta0 = 1e-4          # the fused ladder's hiopPDPerturbation curve
     kappa_plus_bar = 100.0
@@ -547,6 +562,10 @@ def _build_lane_solve(pnlp, consts, term):
             if not is_mds:
                 return kkt_nd.factorize_quick(hess[0], Dx, Dd, Jc, Jd, dw, dw, dc, dc)
             hss, Hdd = hess
+            if js is not None:
+                return kkt_mds.factorize_saddle_triplets(
+                    hss, Hdd, Dx[:ns], Dx[ns:], Dd, Jc[:, ns:], Jd[:, ns:],
+                    kkt_mds.js_values(Jc, Jd, js), js, dw, dw, dc, dc)
             blocks = (hss, Hdd, Dx[:ns], Dx[ns:], Dd, Jc[:, :ns], Jc[:, ns:], Jd[:, :ns],
                       Jd[:, ns:])
             if use_ldl:
@@ -560,8 +579,11 @@ def _build_lane_solve(pnlp, consts, term):
             if not is_mds:
                 dx, dd_, dyc, dyd = kkt_nd.solve_quick(fct, rx_t, rd_t, ryc, ryd)
             else:
-                solve_ = kkt_mds.solve_saddle_device if use_ldl else kkt_mds.solve
-                dxs, dxd, dd_, dyc, dyd = solve_(fct, rx_t[:ns], rx_t[ns:], rd_t, ryc, ryd)
+                args = (fct, rx_t[:ns], rx_t[ns:], rd_t, ryc, ryd)
+                if use_ldl:
+                    dxs, dxd, dd_, dyc, dyd = kkt_mds.solve_saddle_device(*args, js=js)
+                else:
+                    dxs, dxd, dd_, dyc, dyd = kkt_mds.solve(*args)
                 dx = torch.cat([dxs, dxd])
             return res_mod.recover_direction(res, it, b, dx, dd_, dyc, dyd)
 
@@ -648,6 +670,11 @@ def _build_lane_solve(pnlp, consts, term):
     v_bt = vmap(backtrack)
     v_finish = vmap(finish)
 
+    def factor_lanes(stats: BatchStats, *args):
+        """One batched factorization of every lane, counted."""
+        stats.triplet_factors += int(js is not None)
+        return v_factor(*args)
+
     def read(stats: BatchStats, *tensors):
         """One host read: the (S,) tensors stacked and copied by one
         ``tolist``."""
@@ -674,7 +701,7 @@ def _build_lane_solve(pnlp, consts, term):
         # last accepted delta, growing by kappa_w_plus_bar before any
         # success and kappa_w_plus after; one batched factorization per trip
         with _rec.span("batch.factor"):
-            fct = v_factor(hess, Dx, Dd, Jc, Jd, zero, zero)
+            fct = factor_lanes(stats, hess, Dx, Dd, Jc, Jd, zero, zero)
             dc = delta_c_bar * mu ** kappa_c
             first_ever = dw_last == 0
             start = torch.where(first_ever, delta0,
@@ -697,7 +724,7 @@ def _build_lane_solve(pnlp, consts, term):
                 stats.ladder_trips += 1
                 stats.ladder_lanes += n_try
                 dw_new = torch.where(k_reg == 0, start, dw * grow)
-                fct = _where(trying, v_factor(hess, Dx, Dd, Jc, Jd, dw_new, dc), fct)
+                fct = _where(trying, factor_lanes(stats, hess, Dx, Dd, Jc, Jd, dw_new, dc), fct)
                 dw = torch.where(trying, dw_new, dw)
                 k_reg = torch.where(trying, k_reg + 1, k_reg)
                 trying = live & ~fct.ok & (k_reg < MAX_REG)

@@ -1254,14 +1254,7 @@ class _MdsStrategy:
         # triplet-based Schur assembly (the reference's addMDinv* kernels):
         # the same-column nonzero pairs, precomputed once
         dev = nlp.device
-        stacked_rows = np.concatenate([
-            np.asarray(nlp.jac_sp_eq_rows, dtype=np.int64),
-            nlp.m_eq + np.asarray(nlp.jac_sp_in_rows, dtype=np.int64),
-        ])
-        stacked_cols = np.concatenate([
-            np.asarray(nlp.jac_sp_eq_cols, dtype=np.int64),
-            np.asarray(nlp.jac_sp_in_cols, dtype=np.int64),
-        ])
+        stacked_rows, stacked_cols = kkt_mds.stacked_js(nlp)
         self._js_pairs = kkt_mds.build_schur_pairs(
             stacked_rows, stacked_cols, nlp.n_sparse, device=dev
         )

@@ -604,3 +604,191 @@ def test_export_chrome_writes_one_event_per_span(traced, tmp_path):
     base.write_text(json.dumps({"baseTimeNanoseconds": first.start, "traceEvents": []}))
     rec.export_chrome(path, beside=base)
     assert json.loads(path.read_text())["traceEvents"][0]["ts"] == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the ldl_nopiv saddle's triplet route (kkt.mds.factorize_saddle_triplets)
+# against its dense route (factorize_saddle_device), under torch.func.vmap
+# ---------------------------------------------------------------------------
+#: the regularizations tried: none, and a ladder step's (delta_w, delta_c)
+DELTAS = [(0.0, 0.0), (1e-4, 1e-8)]
+
+
+def _rel(a, b):
+    """Per lane: the largest difference over the largest entry of ``a``."""
+    a, b = a.reshape(a.shape[0], -1), b.reshape(b.shape[0], -1)
+    return ((a - b).abs().amax(-1) / a.abs().amax(-1).clamp(min=1e-300)).max().item()
+
+
+def _assert_routes_agree(blocks, js, S, dw, dc, seed):
+    """``blocks``: (hss, Hdd, Dxs, Dxd, Dd, Jc, Jd) stacked over S lanes, the
+    Jacobians dense with the sparse columns first. The saddle M to 1e-13,
+    the same ok and pivot-sign inertia, the directions to 1e-10."""
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+
+    hss, Hdd, Dxs, Dxd, Dd, Jc, Jd = blocks
+    ns = hss.shape[-1]
+    d = [torch.full((S,), v, dtype=torch.float64) for v in (dw, dw, dc, dc)]
+    dense = (hss, Hdd, Dxs, Dxd, Dd, Jc[..., :ns], Jc[..., ns:], Jd[..., :ns], Jd[..., ns:], *d)
+    js_vals = torch.func.vmap(lambda a, b: kkt_mds.js_values(a, b, js))(Jc, Jd)
+    trip = (hss, Hdd, Dxs, Dxd, Dd, Jc[..., ns:], Jd[..., ns:], js_vals)
+
+    def triplet_saddle(*a):
+        return kkt_mds._triplet_saddle(*a[:8], js, *a[8:])[-1]
+
+    M_d = torch.func.vmap(lambda *a: kkt_mds._dense_saddle(*a)[-1])(*dense)
+    M_t = torch.func.vmap(triplet_saddle)(*trip, *d)
+    assert _rel(M_d, M_t) < 1e-13
+
+    f_d = torch.func.vmap(kkt_mds.factorize_saddle_device)(*dense)
+    f_t = torch.func.vmap(lambda *a: kkt_mds.factorize_saddle_triplets(*a[:8], js, *a[8:]))(
+        *trip, *d)
+    assert torch.equal(f_d.ok, f_t.ok)
+    assert torch.equal((f_d.d < 0).sum(-1), (f_t.d < 0).sum(-1))
+
+    g = torch.Generator().manual_seed(seed)
+    mc, md = Jc.shape[-2], Jd.shape[-2]
+    rhs = [torch.randn((S, k), generator=g, dtype=torch.float64)
+           for k in (ns, Hdd.shape[-1], md, mc, md)]
+    out_d = torch.func.vmap(kkt_mds.solve_saddle_device)(f_d, *rhs)
+    out_t = torch.func.vmap(lambda f, *r: kkt_mds.solve_saddle_device(f, *r, js=js))(f_t, *rhs)
+    for a, b in zip(out_d, out_t):
+        if a.shape[-1]:
+            assert _rel(a, b) < 1e-10
+
+
+@pytest.mark.parametrize("dw, dc", DELTAS)
+def test_triplet_saddle_equals_dense_on_acopf_first_iterate(dw, dc):
+    """The ACOPF B=16 contingency family (S=3) at its first iterate."""
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+    from hiop_tpu_torch.optimization import residual as res_mod
+
+    tp, th = _port_acopf(16)
+    js = kkt_mds.js_triplets(tp)
+    assert js is not None
+    params = tbs.tree_on(th, tp.device)
+    state0, _, _ = tbs._build_init(tp)(params)
+    it = state0.it
+    Dx, Dd = torch.func.vmap(lambda i: res_mod.barrier_diagonals(i, tp.bounds))(it)
+    hss, Hdd = torch.func.vmap(lambda x, yc, yd, p: tp.eval_hess_blocks(x, 1.0, yc, yd, p))(
+        it.x, it.yc, it.yd, params)
+    ns = tp.n_sparse
+    _assert_routes_agree((hss, Hdd, Dx[:, :ns], Dx[:, ns:], Dd, state0.Jc, state0.Jd),
+                         js, 3, dw, dc, seed=16)
+
+
+def _random_mds(seed, dup=False, S=4, ns=60, nd=7, mc=25, md=15):
+    """A random duplicate-free MDS structure (2 nonzeros a column, rows
+    drawn at random), or with one entry listed twice (``dup``), as a
+    formulation's attributes, and S lanes of random blocks on it: K_s with
+    negative entries, K_d indefinite, Dd > 0."""
+    from types import SimpleNamespace
+
+    rng = np.random.default_rng(seed)
+    m = mc + md
+    cols = np.repeat(np.arange(ns), 2)
+    rows = np.concatenate([rng.choice(m, 2, replace=False) for _ in range(ns)])
+    if dup:
+        rows, cols = np.append(rows, rows[0]), np.append(cols, cols[0])
+    eq = rows < mc
+    nlp = SimpleNamespace(
+        m=m, m_eq=mc, n_sparse=ns, device=torch.device("cpu"),
+        jac_sp_eq_rows=rows[eq], jac_sp_eq_cols=cols[eq],
+        jac_sp_in_rows=rows[~eq] - mc, jac_sp_in_cols=cols[~eq],
+        _jac_eq_rc_t=(torch.from_numpy(rows[eq]), torch.from_numpy(cols[eq])),
+        _jac_in_rc_t=(torch.from_numpy(rows[~eq] - mc), torch.from_numpy(cols[~eq])),
+    )
+    J = np.zeros((S, m, ns + nd))
+    J[:, rows, cols] = rng.standard_normal((S, rows.size))
+    J[:, :, ns:] = rng.standard_normal((S, m, nd))
+    B = rng.standard_normal((S, nd, nd))
+    blocks = (rng.uniform(-1.0, 3.0, (S, ns)), B + np.swapaxes(B, 1, 2),
+              rng.uniform(0.1, 2.0, (S, ns)), rng.uniform(0.1, 2.0, (S, nd)),
+              rng.uniform(0.1, 2.0, (S, md)), J[:, :mc], J[:, mc:])
+    return nlp, tuple(torch.from_numpy(np.ascontiguousarray(b)) for b in blocks)
+
+
+@pytest.mark.parametrize("dw, dc", DELTAS)
+def test_triplet_saddle_equals_dense_on_a_random_structure(dw, dc):
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+
+    nlp, blocks = _random_mds(5)
+    js = kkt_mds.js_triplets(nlp)
+    assert js is not None
+    _assert_routes_agree(blocks, js, 4, dw, dc, seed=5)
+
+
+def test_dense_route_where_the_structure_gives_no_triplets():
+    """A duplicate entry (build_schur_pairs declines), or pairs above
+    TRIPLET_SHARE of the dense product's multiply-adds (a dense J_s),
+    leaves the saddle on the dense route."""
+    from hiop_tpu_torch.kkt import mds as kkt_mds
+
+    nlp, _ = _random_mds(5, dup=True)
+    assert kkt_mds.build_schur_pairs(*kkt_mds.stacked_js(nlp), nlp.n_sparse) is None
+    assert kkt_mds.js_triplets(nlp) is None
+    nlp, _ = _random_mds(5)
+    m, ns = nlp.m, nlp.n_sparse
+    r, c = np.divmod(np.arange(m * ns), ns)
+    nlp.jac_sp_eq_rows, nlp.jac_sp_eq_cols = r[r < nlp.m_eq], c[r < nlp.m_eq]
+    nlp.jac_sp_in_rows, nlp.jac_sp_in_cols = r[r >= nlp.m_eq] - nlp.m_eq, c[r >= nlp.m_eq]
+    assert kkt_mds.build_schur_pairs(*kkt_mds.stacked_js(nlp), ns) is not None
+    assert kkt_mds.js_triplets(nlp) is None
+
+
+class DupShiftedMds(ShiftedMds):
+    """ShiftedMds with J_s's (0, 0) entry listed twice, half its value in
+    each: the same Jacobian, which the triplets cannot hold."""
+
+    def __init__(self):
+        from hiop_tpu_torch.utils.carry import DeviceCache
+
+        super().__init__()
+        self._jr, self._jc = np.append(self._jr, 0), np.append(self._jc, 0)
+        jv = np.ones(self._jr.size)
+        jv[0] = jv[-1] = 0.5
+        self._data = DeviceCache(**dict(self._data._np, jv=jv))
+
+
+def test_duplicate_entries_send_an_ldl_family_to_the_dense_route():
+    """MdsEx1 with ldl_nopiv: its structure gives triplets, so every
+    batched factorization is counted; with an entry listed twice the family
+    takes the dense route (counter 0) and solves the same problem."""
+    runs = []
+    for prob in (ShiftedMds(), DupShiftedMds()):
+        o = NlpOptions()
+        o.update(compute_mode="cpu", linear_solver_dense="ldl_nopiv", **SHIFTED_OPTS)
+        runs.append(_port_run(tbs.ParametricMdsNlp(prob, th0=1.0, options=o), SHIFTS))
+    trip, dense = runs
+    s = trip["stats"]
+    assert s.triplet_factors == s.trips + 1 + s.ladder_trips
+    assert dense["stats"].triplet_factors == 0
+    assert (trip["st"] == 1).all() and (dense["st"] == 1).all()
+    assert np.array_equal(trip["it"], dense["it"])
+    assert np.allclose(trip["obj"], dense["obj"], rtol=1e-9, atol=0.0)
+
+
+def test_batched_acopf_solve_repeats_its_bits():
+    """Two batched solves of the ACOPF B=8 family on the triplet route: the
+    same history, objective and x, bit for bit."""
+    tp, th = _port_acopf(8)
+    a, b = _port_run(tp, th), _port_run(tp, th)
+    assert a["stats"].triplet_factors > 0
+    for k in ("st", "it", "obj", "x", "hist"):
+        assert np.array_equal(a[k], b[k]), k
+
+
+def test_batched_family_counts_its_triplet_factorizations(traced):
+    """The family span's triplet_factors: every kkt.factor span on the
+    ACOPF family (ldl_nopiv), none on ShiftedMds (the quick Cholesky)."""
+    (root,) = [s for s in traced["spans"] if s.name == "batch.family"]
+    n_fact = sum(s.name == "kkt.factor" for s in traced["spans"])
+    acopf = traced["n"] != 2 * NS + ND
+    assert root.attrs["triplet_factors"] == (n_fact if acopf else 0)
+
+
+def test_dense_family_counts_no_triplet_factorization():
+    tp = _port_dense()
+    tp.options.update(max_iter=3)
+    s = _port_run(tp, _dense_th())["stats"]
+    assert s.trips == 4 and s.triplet_factors == 0
