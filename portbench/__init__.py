@@ -11,9 +11,11 @@ finds by the name ``BENCHMARK.json`` gives it:
 
 - ``configs/<config>.json``: the configuration as it is run (sizes,
   options, the guarantee, the reference module that judges it);
-- ``traffic/<traffic>.json``: a traffic mix, the parameters that the one
-  generator in :mod:`portbench.traffic` reads, and the entry it drives;
-- ``entries/<entry>.py``: how a request reaches the program's entry point;
+- ``traffic/<traffic>.json``: a traffic mix, the parameters that the
+  grid-snapshot generator in :mod:`portbench.traffic` reads (or the entry,
+  where it makes its own requests), and the entry it drives;
+- ``entries/<entry>.py``: how a request reaches the program's entry point,
+  and for an instance that is not a grid snapshot, its request stream;
 - ``reference/<reference>.py``: the plain NumPy reference of a problem;
 - ``limits/<cell>.json``: the limit of each number that decides
   ``correct`` in a cell;

@@ -32,7 +32,7 @@ import json
 import sys
 import time
 
-from portbench import device, faults, judge, run, traffic
+from portbench import device, faults, judge, run
 
 
 def main(argv=None) -> int:
@@ -45,23 +45,23 @@ def main(argv=None) -> int:
     p.add_argument("--rehearse", action="store_true")
     p.add_argument("--set", action="append", default=[])
     args = p.parse_args(argv)
-    with faults.plant(args.fault) if args.fault else contextlib.nullcontext():
-        return _read(args)
-
-
-def _read(args) -> int:
     try:
         cell, dev, grid = run.prepare(args)
     except device.NoDevice as e:
         print(f"portbench: {e}", file=sys.stderr)
         return 2
+    with faults.plant(args.fault, cell.entry) if args.fault else contextlib.nullcontext():
+        return _read(args, cell, dev, grid)
+
+
+def _read(args, cell, dev: str, grid: dict) -> int:
     run.warm_up(cell, dev, grid)
     mine, control = {}, {}
     first = "fault" if args.fault else "sound"
     for seed in (int(s) for s in args.seeds.split(",")):
-        stream = traffic.requests(cell.traffic, grid, cell.reference, seed, fresh=args.fresh)
+        reqs = run.stream(cell).requests(cell.traffic, grid, cell.reference, seed, fresh=args.fresh)
         answers, t0 = [], time.perf_counter()
-        for req in itertools.islice(stream, args.requests):
+        for req in itertools.islice(reqs, args.requests):
             answers += cell.entry.serve(cell.config, req, dev).answers
         seconds = time.perf_counter() - t0
         answers = judge.host_answers(answers)

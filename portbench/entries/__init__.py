@@ -5,6 +5,13 @@ program and the reference are given, and ``serve(config, request, device,
 **changes)``, which runs one request through the program's entry point,
 with the configuration's options updated by ``changes`` (a warm-up's), and
 returns its :class:`Served`.
+
+An entry whose instance is not a grid snapshot also defines
+``warmup(traffic, grid, reference)`` and ``requests(traffic, grid,
+reference, seed, fresh=False)``, with :mod:`portbench.traffic`'s
+signatures; the harness then takes its requests from the entry
+(``run.stream``). It may hold the faults of its own path in a dict
+``FAULTS`` (:mod:`portbench.faults`).
 """
 
 from __future__ import annotations

@@ -6,7 +6,11 @@ cell's own size; the tests drive whole runs with one planted and see
     with faults.plant("cost_gradient=0.01"):
         ...
 
-Each fault breaks the program in one way, where the answer is produced:
+An entry may hold the faults of its own path, in a dict ``FAULTS`` of the
+same kind (``entries/dense_solve.py``); :func:`plant` given such an entry
+plants one of those. The faults here break the batched screening solve
+(``entries/acopf_screen.py``), each in one way, where the answer is
+produced:
 
 - ``unchanged``: a solve that returns its state unchanged, every lane's
   starting point claimed as its solution;
@@ -99,9 +103,11 @@ def cost_gradient(rel=None):
 FAULTS = {f.__name__: f for f in (unchanged, half, altered_lane, cost_gradient)}
 
 
-def plant(spec: str):
-    """The context manager of the fault ``name`` or ``name=value``."""
+def plant(spec: str, entry=None):
+    """The context manager of the fault ``name`` or ``name=value``, of the
+    entry's own ``FAULTS`` where it has them, else of this module's."""
     name, _, value = spec.partition("=")
-    if name not in FAULTS:
-        raise KeyError(f"no fault {name!r} (have {sorted(FAULTS)})")
-    return FAULTS[name](value or None)
+    found = getattr(entry, "FAULTS", FAULTS)
+    if name not in found:
+        raise KeyError(f"no fault {name!r} (have {sorted(found)})")
+    return found[name](value or None)

@@ -124,10 +124,18 @@ def prepare(args):
     return cell, dev, cell.entry.grid(cell.config, cell.reference)
 
 
+def stream(cell):
+    """What makes the cell's requests: its entry where the entry defines
+    ``warmup`` and ``requests`` of its own (an instance that is not a grid
+    snapshot), else :mod:`portbench.traffic`'s grid snapshots."""
+    entry = cell.entry
+    return entry if hasattr(entry, "warmup") and hasattr(entry, "requests") else traffic
+
+
 def warm_up(cell, dev: str, grid: dict) -> None:
     """The mix's warm-up requests: they build and load the kernels and
     capture their graphs at the sizes and on the paths of the window."""
-    warm = traffic.warmup(cell.traffic, grid, cell.reference)
+    warm = stream(cell).warmup(cell.traffic, grid, cell.reference)
     for w in cell.traffic["warmup"]:
         cell.entry.serve(cell.config, warm, dev, max_iter=int(w["max_iter"]))
 
@@ -165,7 +173,7 @@ def main(argv=None) -> int:
     gc.collect()
 
     # -- the window
-    stream = traffic.requests(mix, grid, cell.reference, args.seed)
+    reqs = stream(cell).requests(mix, grid, cell.reference, args.seed)
     answers, traces, error = [], [], None
     if tracing:
         prof = profile(activities=activities)
@@ -176,7 +184,7 @@ def main(argv=None) -> int:
     setup_s = device.process_age()
     t0 = time.perf_counter()
     while True:
-        req = next(stream)
+        req = next(reqs)
         r0 = reads.count if tracing else 0
         h0 = host.mark()
         q0 = time.perf_counter()
@@ -222,7 +230,7 @@ def main(argv=None) -> int:
             peaks = json.load(f)
         trace = probe.Trace(traces, window_s, act["busy_s"], config.get("logical_n", {}),
                             peaks, mix, act["device_ops"], act["idle_gaps"])
-    stream = out = None
+    reqs = out = None
     gc.collect()
     if dev == "cuda":
         torch.cuda.empty_cache()

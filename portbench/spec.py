@@ -3,9 +3,15 @@
 A cell (an entry of ``workloads``) names a configuration and a traffic
 mix. :func:`load_cell` gathers what one run of the cell needs: the
 configuration's file, the traffic mix's file, the cell's limits, the
-metrics that the cell reports, and the modules that read them. Adding a
+metrics that the cell reports, the modules that read them, the entry that
+the mix names and the reference that the configuration names. Adding a
 cell, a configuration, a traffic mix or a metric adds files and entries;
-no file here changes.
+no file here changes. That holds for a configuration of any kind: one
+that is an ACOPF grid takes its requests from :mod:`portbench.traffic`'s
+grid snapshots, and one that is not brings an entry that makes its own
+requests (``warmup`` and ``requests``, as ``entries/dense_solve.py``
+does; ``run.stream`` chooses), and a reference with the same
+``certificate`` call.
 
 A metric's reader is ``<folder>/<name>.py``, or where there is none, the
 reader of its stem, the name up to its first dot: ``ldl_roofline.solve``

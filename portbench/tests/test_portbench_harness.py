@@ -16,7 +16,7 @@ from pathlib import Path
 
 import pytest
 
-from portbench import probe, spec
+from portbench import judge, probe, run, spec, traffic
 from portbench.device import FORBIDDEN
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -106,7 +106,8 @@ def test_a_new_cell_config_mix_and_metric_are_found_by_name_from_new_files(tmp_p
                          "why": "a smaller grid"})
     b["workloads"].append({"name": "scacopf-b128.screen8", "config": "scacopf-b128",
                            "traffic": "screen8", "chips": 1, "why": "families of 8, wider loads"})
-    b["end_to_end"][1]["workloads"].append("scacopf-b128.screen8")
+    next(m for m in b["end_to_end"] if m["name"] == "screen_rate")["workloads"].append(
+        "scacopf-b128.screen8")
     b["per_layer"].append({"name": "answers_per_request.screen8", "unit": "answers",
                            "better": "higher", "source": "program_counter", "layer": "outer loop",
                            "moves": "screen_rate", "workloads": ["scacopf-b128.screen8"]})
@@ -126,50 +127,148 @@ def test_a_new_cell_config_mix_and_metric_are_found_by_name_from_new_files(tmp_p
     # every file that was there is as it was
     after = _digest(pkg)
     assert {k: after[k] for k in before} == before
-    # and the cell that was there still loads as before
+    # and the cell that was there still loads as before: its first metrics
+    # as the benchmark began with them, any later ones after them
     old = spec.load_cell("scacopf-b256.screen32", root=tmp_path, package=pkg)
-    assert [m.name for m in old.per_layer] == [
+    assert [m.name for m in old.per_layer][:5] == [
         "iters.screen", "fact_per_iter.screen", "reads_per_iter.screen",
         "ldl_roofline.screen", "idle_share.screen"]
+    assert [m.name for m in old.per_layer] == [
+        m["name"] for m in _bench()["per_layer"] if "scacopf-b256.screen32" in m["workloads"]]
 
 
-def _ldl_bound_ms(n, dtype):
+def test_a_configuration_that_is_no_grid_brings_its_own_stream_in_new_files(tmp_path):
+    """A configuration that is not an ACOPF grid (the dense example at
+    n = 40) comes with an entry that makes its own requests, its
+    reference, its limits and a reader, all in new files; the harness takes
+    its requests from that entry, and nothing that was there changes."""
+    pkg = tmp_path / "portbench"
+    shutil.copytree(PACKAGE, pkg, ignore=shutil.ignore_patterns("__pycache__"))
+    before = _digest(pkg)
+    b = _bench()
+    cfg = json.loads((PACKAGE / "configs" / "dense-ex2-n20k.json").read_text())
+    cfg.update(name="dense-ex2-n40", n=40, logical_n={"K": 40}, reference="dense_ex2_n40")
+    (pkg / "configs" / "dense-ex2-n40.json").write_text(json.dumps(cfg))
+    # a new entry and a new reference: copies under names of their own
+    (pkg / "entries" / "dense_solve_n40.py").write_text(
+        (PACKAGE / "entries" / "dense_solve.py").read_text())
+    (pkg / "reference" / "dense_ex2_n40.py").write_text(
+        (PACKAGE / "reference" / "dense_ex2.py").read_text())
+    (pkg / "traffic" / "solve1-n40.json").write_text(json.dumps(
+        {"entry": "dense_solve_n40", "factor_kernel": "cholesky", "warmup": [{"max_iter": 2}]}))
+    (pkg / "limits" / "dense-ex2-n40.solve1-n40.json").write_text(
+        json.dumps({"limits": {"feas": 1e-6, "stat": 1e-7, "comp": 1e-7, "obj_gap": 1e-11}}))
+    (pkg / "metrics" / "answers_per_request.n40.py").write_text(
+        "def read(trace):\n    return sum(r.answers for r in trace.requests) / len(trace.requests)\n")
+    b["configs"].append({"name": "dense-ex2-n40", "source": "https://github.com/LLNL/hiop",
+                         "file": "portbench/configs/dense-ex2-n40.json", "reduced": ["n"],
+                         "why": "a small dense problem"})
+    b["workloads"].append({"name": "dense-ex2-n40.solve1-n40", "config": "dense-ex2-n40",
+                           "traffic": "solve1-n40", "chips": 1, "why": "one solve a request"})
+    next(m for m in b["end_to_end"] if m["name"] == "solve_s")["workloads"].append(
+        "dense-ex2-n40.solve1-n40")
+    b["per_layer"].append({"name": "answers_per_request.n40", "unit": "answers",
+                           "better": "higher", "source": "program_counter", "layer": "outer loop",
+                           "moves": "solve_s", "workloads": ["dense-ex2-n40.solve1-n40"]})
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(b))
+
+    cell = spec.load_cell("dense-ex2-n40.solve1-n40", root=tmp_path, package=pkg)
+    assert [m.name for m in cell.end_to_end] == ["setup_s", "solve_s"]
+    assert [m.name for m in cell.per_layer] == ["answers_per_request.n40"]
+    assert run.stream(cell) is cell.entry and cell.entry.__file__.endswith("dense_solve_n40.py")
+    grid = cell.entry.grid(cell.config, cell.reference)
+    assert grid == {"n": 40}
+    first = next(run.stream(cell).requests(cell.traffic, grid, cell.reference, 1414213562))
+    served = cell.entry.serve(cell.config, first, "cpu")
+    found = judge.numbers(judge.host_answers(served.answers), grid, cell.reference)
+    assert judge.verdict(found, cell.limits, complete=True)[0], found
+    after = _digest(pkg)
+    assert {k: after[k] for k in before} == before
+
+
+def _bound_ms(n, dtype, batch):
     peaks = json.loads((PACKAGE / "peaks.json").read_text())
     item = {"float64": 8, "float32": 4}[dtype]
-    return max(n ** 3 / 3 / peaks["flops"][dtype], 2 * n * n * item / peaks["bytes_per_s"]) * 1e3
+    return batch * max(n ** 3 / 3 / peaks["flops"][dtype], 2 * n * n * item / peaks["bytes_per_s"]) * 1e3
 
 
-@pytest.mark.parametrize("cell,wrapper,batch", [
-    ("scacopf-b256.screen32", "ldl_nopiv_batched", 32),
+@pytest.mark.parametrize("cell,metric,wrapper,key,n,padded,batch", [
+    ("scacopf-b256.screen32", "ldl_roofline.screen", "ldl_nopiv_batched", "saddle", 2355, 2432, 32),
+    ("dense-ex2-newton-n20k.solve", "chol_roofline.solve", "cholesky", "K", 20000, 20000, 1),
 ])
-def test_ldl_roofline_counts_the_logical_order_not_the_padded_one(cell, wrapper, batch):
-    """The wrapper records the padded order (2432); the work is that of
-    the saddle the caller factors (2355)."""
+def test_a_roofline_counts_the_logical_order_not_the_padded_one(cell, metric, wrapper, key, n,
+                                                                padded, batch):
+    """The wrapper records the order it launched at (the LDL^T pads the
+    saddle, 2355 to 2432; the Cholesky factors K as it is); the work is that
+    of the matrix the caller factors. Launches at a smaller order (another
+    matrix: the dense KKT's small Schur complement) are left out."""
     c = spec.load_cell(cell, root=ROOT)
-    assert c.config["logical_n"]["saddle"] == 2355
-    metric = next(m for m in c.per_layer if m.name.startswith("ldl_roofline"))
-    ev = [(wrapper, 2432, "float32", batch, 2.0), (wrapper, 2432, "float64", batch, 1.5),
-          (wrapper, 384, "float64", batch, 0.2)]       # another order: not the saddle's
+    assert c.config["logical_n"][key] == n and c.traffic["factor_kernel"] == wrapper
+    reader = next(m for m in c.per_layer if m.name == metric).reader
+    ev = [(wrapper, padded, "float32", batch, 2.0), (wrapper, padded, "float64", batch, 1.5),
+          (wrapper, 4, "float64", batch, 0.2),          # another order: not the factored matrix
+          ("another_kernel", padded, "float64", batch, 9.0)]
     trace = probe.Trace([probe.RequestTrace(10, batch, 0, Counter(), ev)], 1.0, 0.5,
                         c.config["logical_n"], json.loads((PACKAGE / "peaks.json").read_text()),
                         c.traffic)
-    assert c.traffic["factor_kernel"] == wrapper
-    want = 100 * batch * (_ldl_bound_ms(2355, "float32") + _ldl_bound_ms(2355, "float64")) / 3.5
-    assert metric.reader.read(trace) == pytest.approx(want, rel=1e-12)
-    padded = 100 * batch * (_ldl_bound_ms(2432, "float32") + _ldl_bound_ms(2432, "float64")) / 3.5
-    assert metric.reader.read(trace) < padded
-    work = spec.load_module(PACKAGE / "work" / "ldl_nopiv.py")
-    assert work.flops(2355) == 2355 ** 3 / 3 and work.bytes_moved(2355, 4) == 2 * 2355 ** 2 * 4
-    chol = spec.load_module(PACKAGE / "work" / "cholesky.py")
-    assert chol.flops(10000) == 10000 ** 3 / 3
+    want = 100 * (_bound_ms(n, "float32", batch) + _bound_ms(n, "float64", batch)) / 3.5
+    assert reader.read(trace) == pytest.approx(want, rel=1e-12)
+    if padded > n:
+        as_padded = 100 * (_bound_ms(padded, "float32", batch) + _bound_ms(padded, "float64", batch)) / 3.5
+        assert reader.read(trace) < as_padded
+    work = spec.load_module(PACKAGE / "work" / f"{wrapper.removesuffix('_batched')}.py")
+    assert work.flops(n) == n ** 3 / 3 and work.bytes_moved(n, 4) == 2 * n ** 2 * 4
 
 
-def test_every_reader_finds_nothing_in_an_empty_trace():
+@pytest.mark.parametrize("cell", ["scacopf-b256.screen32", "dense-ex2-newton-n20k.solve"])
+def test_every_reader_finds_nothing_in_an_empty_trace(cell):
     """A reader that finds nothing returns nothing (never a 0 share)."""
-    for cell in ("scacopf-b256.screen32",):
-        c = spec.load_cell(cell, root=ROOT)
-        empty = probe.Trace([], 0.0, 0.0, c.config["logical_n"], {})
-        assert all(m.reader.read(empty) is None for m in c.per_layer)
+    c = spec.load_cell(cell, root=ROOT)
+    empty = probe.Trace([], 0.0, 0.0, c.config["logical_n"], {}, c.traffic)
+    assert all(m.reader.read(empty) is None for m in c.per_layer)
+
+
+#: sha256 of the first 4 requests of the screening cell's stream (each
+#: request's p_load bytes, its lane order, its index and snapshot), as the
+#: stream was before entries could own theirs; and of its warm-up request
+_SCREEN_STREAM = {
+    (20260, False): "5a469ffcc5405c856bb5586d2e07a6b0149b610f341a88a2c72fd1222d917ad2",
+    (1414213562, False): "2c51677e0d2f11c0a516043e11dba125542358eb409bba87eb1d380835d0cc66",
+    (1618033988, False): "b68f6b8652456a28c1a2b2c6ef9d9199fc52bbd33398c8b339c8858c01fbbaa2",
+    (20260, True): "8105b32a7b4ef5808b20a6e6a20d29875d7654f1a2d6702e29b7a2e63d4bc5d5",
+    (1414213562, True): "183369b16bafc5a0acfda61710d0d3c8e55a5c679736d764067c729a21cb3412",
+    (1618033988, True): "09d64cffb63b6b09ff68732feefe49545ea02cfa8e4b6ab8db42939135f61429",
+}
+_SCREEN_WARMUP = "3c2a9615ac03d7797c610daaf305597fb0808c6b1e28f872c1cbc18d0cc0f9d6"
+
+
+def _request_digest(h, req):
+    h.update(req.p_load.tobytes())
+    h.update(json.dumps([int(k) for k in req.lines]).encode())
+
+
+@pytest.mark.parametrize("seed,fresh", sorted(_SCREEN_STREAM))
+def test_the_screening_stream_is_what_it_was(monkeypatch, seed, fresh):
+    """The route that run.py and calibrate.py take (``run.prepare``,
+    ``run.stream``) gives the screening cell the same requests and warm-up
+    as the grid-snapshot generator always has, in both modes."""
+    import argparse
+    import itertools
+
+    monkeypatch.chdir(ROOT)
+    args = argparse.Namespace(workload="scacopf-b256.screen32", set=[], rehearse=True)
+    cell, _, grid = run.prepare(args)
+    source = run.stream(cell)
+    assert source is traffic
+    h = hashlib.sha256()
+    for req in itertools.islice(source.requests(cell.traffic, grid, cell.reference, seed,
+                                                fresh=fresh), 4):
+        _request_digest(h, req)
+        h.update(json.dumps([req.index, req.snapshot]).encode())
+    assert h.hexdigest() == _SCREEN_STREAM[(seed, fresh)]
+    h = hashlib.sha256()
+    _request_digest(h, source.warmup(cell.traffic, grid, cell.reference))
+    assert h.hexdigest() == _SCREEN_WARMUP
 
 
 def test_union_and_idle_gaps():

@@ -1,10 +1,18 @@
-"""The one request generator: every traffic mix is a file of parameters
-that it reads.
+"""The grid-snapshot request generator, and the :class:`Request` that
+every stream yields. A traffic mix is a file of parameters
+(``traffic/<name>.json``) that a generator reads.
 
-A request is one load snapshot of the configuration's grid, and the lines
-out in each of its lanes: one lane (the basecase) for a dispatch, the
-basecase and ring-line outages for a screening family. Parameters of a mix
-(``traffic/<name>.json``):
+This generator serves the configurations that are ACOPF grids. An entry
+that serves another kind of instance defines ``warmup`` and ``requests``
+of its own, with this module's signatures, and the harness takes those
+instead (``run.stream``); its mix still names the entry and the
+``factor_kernel`` and holds the warm-up, and the entry reads any other
+parameter of it. A field of :class:`Request` that the instance has no use
+for is None or -1.
+
+A request here is one load snapshot of the configuration's grid, and the
+lines out in each of its lanes: one lane (the basecase) for a dispatch, the
+basecase and ring-line outages for a screening family. Parameters of a mix:
 
 - ``entry``: the module under ``entries/`` that hands a request to the
   program;
@@ -36,8 +44,8 @@ import numpy as np
 @dataclass
 class Request:
     index: int
-    snapshot: int           # the pool's snapshot (-1: drawn for this request alone)
-    p_load: np.ndarray      # (B,) the snapshot's loads
+    snapshot: int           # the pool's snapshot (-1: drawn for this request alone, or none)
+    p_load: np.ndarray      # (B,) the snapshot's loads (None: an instance that is no grid)
     lines: list             # the line out in each lane (-1: none)
 
 
